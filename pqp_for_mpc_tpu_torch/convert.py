@@ -1,0 +1,62 @@
+"""Carry problem data across between the JAX package and this port.
+
+Each container is moved as a dict of NumPy arrays keyed by its field
+names, i.e. what ``{f: np.asarray(getattr(obj, f))}`` gives for the JAX
+container.  :func:`primal_from_numpy`, :func:`dual_from_numpy` and
+:func:`condensed_from_numpy` build the torch containers on ``device``;
+:func:`to_numpy` goes the other way.  ``None`` fields stay ``None``; every
+array becomes float32, the working type of both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pqp_for_mpc_tpu_torch.problem import CondensedMPCData, DualQP, PrimalQP
+
+
+def _tensor(v, device):
+    if v is None:
+        return None
+    return torch.tensor(np.asarray(v, np.float32), device=device)
+
+
+def _build(cls, arrays: dict, device):
+    names = [f.name for f in dataclasses.fields(cls)]
+    unknown = set(arrays) - set(names)
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    return cls(**{n: _tensor(arrays.get(n), device) for n in names})
+
+
+def primal_from_numpy(arrays: dict, device=None) -> PrimalQP:
+    """:class:`PrimalQP` from a dict of NumPy arrays (``Qp`` may be None)."""
+    return _build(PrimalQP, arrays, device)
+
+
+def dual_from_numpy(arrays: dict, device=None) -> DualQP:
+    """:class:`DualQP` from a dict of NumPy arrays (``Qdp_theta`` and
+    ``Qdn_theta`` may be None: a split-free dual)."""
+    return _build(DualQP, arrays, device)
+
+
+def condensed_from_numpy(arrays: dict, device=None) -> CondensedMPCData:
+    """:class:`CondensedMPCData` from a dict of NumPy arrays."""
+    return _build(CondensedMPCData, arrays, device)
+
+
+def to_numpy(obj) -> dict:
+    """Any container of this port (or of the JAX package) as a dict of
+    NumPy arrays keyed by field name."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        elif v is not None:
+            v = np.asarray(v)
+        out[f.name] = v
+    return out

@@ -1,0 +1,22 @@
+from pqp_for_mpc_tpu_torch.models.plants import (  # noqa: F401
+    ZOO,
+    LinearPlant,
+    LTVPlant,
+    aircraft_pitch,
+    dc_motor,
+    double_integrator,
+    mass_spring_damper,
+    quadruple_tank,
+    random_stable,
+    stack_plant,
+    thermal_rc,
+)
+from pqp_for_mpc_tpu_torch.models.mpc import (  # noqa: F401
+    MPCController,
+    MPCSpec,
+    auto_backend,
+    condense,
+    condensed_n_con,
+    dare_terminal_weight,
+    move_schedule,
+)

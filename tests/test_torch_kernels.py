@@ -1,0 +1,169 @@
+"""The port's two kernels (K1 whole solve, K2 fused updates) against the
+JAX package's Pallas kernels, and against their plain versions on a GPU.
+
+On the CPU each wrapper runs its plain PyTorch version, which is held to
+the JAX kernel run in interpret mode on the same NumPy inputs: K2 at rtol
+1e-5 (as ``tests/test_kernels.py``), K1 through ``solve_fused`` to the
+oracle parity bar (converged equal, iterations within max(5, iters/5)
+rounded up to whole checks, U within 5e-3 * max(1, |U|max)).  The CUDA
+kernels themselves are held to these plain versions on the GPU by
+``tests/test_torch_cuda.py``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pqp_for_mpc_tpu.dual import dualize as jdualize
+from pqp_for_mpc_tpu.models import MPCSpec, condense, double_integrator
+from pqp_for_mpc_tpu.ops.kernels import fused_pqp_iterations as j_k2
+from pqp_for_mpc_tpu.ops.solve_kernel import solve_fused as j_solve_fused
+from pqp_for_mpc_tpu_torch import convert
+from pqp_for_mpc_tpu_torch.config import MPC_CONFIG
+from pqp_for_mpc_tpu_torch.ops import kernels, solve_kernel
+
+B = 72   # not a multiple of the 128-lane block: exercises the ragged edge
+SMOKE = dataclasses.replace(MPC_CONFIG, feas_from_dual_gradient=False,
+                            accel_every=0, max_iters=5000)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def iters_bar(iters, check_every):
+    """The oracle bar max(5, iters/5), rounded up to whole checks: a count
+    reported every ``check_every`` updates resolves no finer than that."""
+    bar = np.maximum(5, np.asarray(iters) // 5)
+    return -(-bar // check_every) * check_every
+
+
+def _jcfg(cfg):
+    from pqp_for_mpc_tpu.config import SolverConfig as JConfig
+    return JConfig(**dataclasses.asdict(cfg))
+
+
+def _workload(per_lane_kp=False):
+    spec = MPCSpec(double_integrator(), horizon=7, Qy=np.eye(1),
+                   R=0.05 * np.eye(1), r=np.array([2.5]), u_min=-np.ones(1),
+                   u_max=np.ones(1), du_max=0.5 * np.ones(1))
+    data = condense(spec)
+    x = np.random.default_rng(0).normal(0.0, 0.5, (2, B)).astype(np.float32)
+    jp = data.assemble(x=jnp.asarray(x), Qp=data.qp())
+    if per_lane_kp:
+        # bounds loosened per lane (all lanes stay feasible; each sees its
+        # own active set)
+        kp = (np.asarray(jp.Kp)[:, None] + np.random.default_rng(7)
+              .uniform(0.0, 2.0, (jp.Kp.shape[0], B))).astype(np.float32)
+        jp = dataclasses.replace(jp, Kp=jnp.asarray(kp))
+    jd = jdualize(jp)
+    return (jp, jd, convert.primal_from_numpy(convert.to_numpy(jp)),
+            convert.dual_from_numpy(convert.to_numpy(jd)))
+
+
+def _k2_inputs(jd, shared):
+    N = jd.n_con
+    Y = np.random.default_rng(1).uniform(0.01, 10.0, (N, B)) \
+        .astype(np.float32)
+    Fdn, Fdp = np.asarray(jd.Fdn), np.asarray(jd.Fdp)
+    if shared:
+        Fdn, Fdp = Fdn[:, :1], Fdp[:, :1]
+    return (np.asarray(jd.Qdn_theta), np.asarray(jd.Qdp_theta), Fdn, Fdp, Y)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_k2_plain_matches_jax_kernel(shared):
+    jp, jd, tp, td = _workload()
+    qdn, qdp, fdn, fdp, Y = _k2_inputs(jd, shared)
+    N = qdn.shape[0]
+    want = j_k2(jnp.asarray(qdn), jnp.asarray(qdp),
+                jnp.broadcast_to(jnp.asarray(fdn), (N, B)),
+                jnp.broadcast_to(jnp.asarray(fdp), (N, B)), jnp.asarray(Y),
+                num_iters=8, interpret=True, den_eps=1e-30)
+    got = kernels.fused_pqp_iterations(
+        *(torch.tensor(a) for a in (qdn, qdp, fdn, fdp, Y)),
+        num_iters=8, den_eps=1e-30)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+K1_CASES = {
+    # explicit gap with the reference's strict weak-duality test
+    "explicit_gap": (dataclasses.replace(
+        SMOKE, gap_from_complementarity=False, strict_weak_duality=True),
+        False),
+    "complementarity_gap": (SMOKE, False),
+    # a check every 4 updates: iteration counts come in steps of the
+    # check cadence, and the parity bar is 5 iterations at small counts
+    "accel": (dataclasses.replace(SMOKE, check_every=4, accel_every=4),
+              False),
+    "per_lane_kp": (dataclasses.replace(SMOKE,
+                                        gap_from_complementarity=False),
+                    True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_k1_plain_matches_jax_solve_fused(case):
+    cfg, per_lane_kp = K1_CASES[case]
+    jp, jd, tp, td = _workload(per_lane_kp)
+    want = j_solve_fused(jp, jd, cfg=_jcfg(cfg), interpret=True)
+    got = solve_kernel.solve_fused(tp, td, cfg=cfg)
+    assert np.asarray(want.converged).mean() > 0.9
+    np.testing.assert_array_equal(got.converged.numpy(),
+                                  np.asarray(want.converged))
+    it_w = np.asarray(want.iters).astype(np.int64)
+    assert (np.abs(got.iters.numpy() - it_w)
+            <= iters_bar(it_w, cfg.check_every)).all()
+    scale = max(1.0, float(np.abs(np.asarray(want.U)).max()))
+    np.testing.assert_allclose(got.U.numpy(), np.asarray(want.U),
+                               atol=5e-3 * scale, rtol=5e-3)
+
+
+def test_cpu_tensors_leave_launch_counters_at_zero():
+    jp, jd, tp, td = _workload()
+    qdn, qdp, fdn, fdp, Y = (torch.tensor(a)
+                             for a in _k2_inputs(jd, False))
+    k1, k2 = solve_kernel.fused_full_solve, kernels.fused_pqp_iterations
+    k1.launches = k2.launches = 0
+    kernels.fused_pqp_iterations(qdn, qdp, fdn, fdp, Y, num_iters=2)
+    solve_kernel.solve_fused(tp, td, cfg=dataclasses.replace(
+        SMOKE, max_iters=16))
+    assert (k1.launches, k2.launches) == (0, 0)
+
+
+def test_fits_resident():
+    assert kernels.fits_resident(28) and kernels.fits_resident(128)
+    assert not kernels.fits_resident(129)
+    assert solve_kernel.fits_resident(28, 7)
+    assert solve_kernel.smem_bytes(28, 7) < 48 * 1024
+    # N=128 fits the update kernel but not the whole solve's 5 matrices
+    assert not solve_kernel.fits_resident(128, 32)
+    assert not solve_kernel.fits_resident(64, 129)
+
+
+def test_panel_checks_dtype_and_shape():
+    dev = torch.device("cpu")
+    t, lane = kernels._panel(torch.ones(4, 3), 4, 3, "P", dev)
+    assert lane == 1 and t.shape == (4, 3)
+    t, lane = kernels._panel(torch.ones(4, 1).expand(4, 3), 4, 3, "P", dev)
+    assert lane == 0 and t.shape == (4,)
+    with pytest.raises(ValueError, match="float32"):
+        kernels._panel(torch.ones(4, 3, dtype=torch.float64), 4, 3, "P", dev)
+    with pytest.raises(ValueError, match="expected"):
+        kernels._panel(torch.ones(4, 2), 4, 3, "P", dev)
+
+
+def test_solve_fused_rejects_split_free_dual():
+    jp, jd, tp, td = _workload()
+    td = dataclasses.replace(td, Qdp_theta=None, Qdn_theta=None)
+    with pytest.raises(ValueError, match="MATERIALIZED"):
+        solve_kernel.solve_fused(tp, td, cfg=SMOKE)
