@@ -25,5 +25,5 @@ from pqp_for_mpc_tpu_torch.problem import (  # noqa: F401
 from pqp_for_mpc_tpu_torch.config import SolverConfig  # noqa: F401
 from pqp_for_mpc_tpu_torch.dual import dualize  # noqa: F401
 from pqp_for_mpc_tpu_torch.solver import (  # noqa: F401
-    SolveResult, solve, solve_batched)
+    SolveResult, solve, solve_batched, solve_mixed)
 from pqp_for_mpc_tpu_torch.routing import route_solve, solve_auto  # noqa: F401

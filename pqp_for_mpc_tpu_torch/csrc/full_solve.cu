@@ -48,13 +48,6 @@
 
 namespace pqp {
 
-enum LaneState : int {
-  kActive = 0,     // still iterating; at exit: hit max_iters
-  kCertified = 1,  // the in-kernel termination test passed
-  kStalled = 2,    // bit-identical iterate over a whole check block
-  kPadding = 3,    // batch padding (TPU layout only; never produced here)
-};
-
 struct FullSolveArgs {
   const float *qdn, *qdp, *qd, *gp, *qp, *qpi;
   const float *fp, *fd, *fdp, *fdn, *kps, *mp, *md, *y0;

@@ -1,5 +1,5 @@
-// Helpers shared by the two resident kernels (pqp_iterations.cu,
-// full_solve.cu).
+// Helpers shared by the kernels (pqp_iterations.cu, full_solve.cu and,
+// through tile_gemm.cuh, pqp_iterations_tiled.cu and full_solve_tiled.cu).
 //
 // Layout conventions, as the Python wrappers pass them:
 //  * matrices are row-major float32; in shared memory each row is padded to
@@ -18,6 +18,14 @@
 namespace pqp {
 
 constexpr int kLanesPerBlock = 128;
+
+// Per-lane exit codes of the whole-solve kernels (the TPU kernels' codes).
+enum LaneState : int {
+  kActive = 0,     // still iterating; at exit: hit max_iters
+  kCertified = 1,  // the in-kernel termination test passed
+  kStalled = 2,    // bit-identical iterate over a whole check block
+  kPadding = 3,    // batch padding (TPU layout only; never produced here)
+};
 
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 

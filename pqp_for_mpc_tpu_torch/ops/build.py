@@ -1,12 +1,14 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 At first use :func:`load_library` compiles every ``csrc/*.cu`` into one
-shared library with a plain C interface and loads it with ``ctypes``:
+shared library with a plain C interface and loads it with ``ctypes``: one
+``nvcc`` per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu
 
-The library goes to ``<repo>/.build/pqp_for_mpc_tpu_torch/`` under a name
+then one link, ``nvcc -shared -o <lib> <obj>...`` (no relocatable device
+code: every object carries its own kernels).  The library goes to ``<repo>/.build/pqp_for_mpc_tpu_torch/`` under a name
 that hashes the sources and the flags, so an edited source rebuilds and an
 unchanged one loads at once; ``ptxas``'s register and shared-memory report
 is kept beside it as ``<lib>.log``.  No ``--use_fast_math``: the update
@@ -32,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / ".build" / \
     "pqp_for_mpc_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +54,15 @@ SIGNATURES = {
     # eaj, erj, strict, den_eps, gap_comp, stream
     "full_solve_f32": [_P] * 6 + [_P, _I] * 8 + [_P] * 4 + [_I] * 6
     + [_F, _F, _I, _F, _I, _P],
+    # q, q_bf16, theta, fdn, fdp, fd_lane, y, y_out, y_tmp, n, B,
+    # num_iters, den_eps, stream
+    "pqp_iterations_tiled": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                             _F, _P],
+    # qh, theta, gp, qp, qpi, fp, fd, fdp, fdn, kps, mp, md, y0,
+    # y_out, u_out, iters_out, state_out, yb, qdy, w, g, p, v, lane, part,
+    # n, m, B, max_iters, check_every, accel, eaj, erj, strict, den_eps,
+    # gap_comp, stream
+    "full_solve_tiled_f32": [_P] * 25 + [_I] * 6 + [_F, _F, _I, _F, _I, _P],
 }
 
 
@@ -89,19 +100,36 @@ def load_library() -> ctypes.CDLL:
     lib_path = library_path()
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a temporary name, then rename: a concurrent or
-        # interrupted build never leaves a half-written library in place
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(s) for s in _sources()]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                               + proc.stdout + proc.stderr)
-        Path(str(lib_path) + ".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+        # build in a temporary directory, then rename the library into
+        # place: a concurrent or interrupted build never leaves a
+        # half-written library behind
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            jobs = []
+            for src in _sources():
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
+                       os.path.join(tmp, src.stem + ".o"), str(src)]
+                jobs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            log = []
+            failed = []
+            for cmd, proc in jobs:
+                out = proc.communicate()[0]
+                log.append(" ".join(cmd) + "\n" + out)
+                if proc.returncode != 0:
+                    failed.append(log[-1])
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            lib_tmp = os.path.join(tmp, lib_path.name)
+            cmd = [nvcc, "-shared", "-o", lib_tmp,
+                   *sorted(str(p) for p in Path(tmp).glob("*.o"))]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc link failed:\n" + " ".join(cmd)
+                                   + "\n" + proc.stdout + proc.stderr)
+            Path(str(lib_path) + ".log").write_text("\n".join(log))
+            os.replace(lib_tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

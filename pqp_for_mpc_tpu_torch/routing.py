@@ -2,27 +2,35 @@
 
 The counterpart of ``pqp_for_mpc_tpu/routing.py``: :func:`route_solve` is
 the pure decision function and :func:`solve_auto` dispatches through it.
-This port has two engines so far:
+This port has three engines so far:
 
 * ``"xla"`` — :func:`pqp_for_mpc_tpu_torch.solver.solve_batched`, the
   plain PyTorch masked-lane loop (the JAX package's XLA engine; the name
   is kept so engine choices carry across);
 * ``"fused"`` — :func:`pqp_for_mpc_tpu_torch.ops.solve_kernel.solve_fused`,
-  the whole-solve CUDA kernel.
+  the whole-solve CUDA kernel (K1);
+* ``"mixed"`` — :func:`pqp_for_mpc_tpu_torch.solver.solve_mixed`, the
+  bfloat16 bulk phase and the float32 certification; on CUDA with
+  acceleration both phases ride the streamed update kernel (K3) past
+  residency, as the JAX package forces ``use_pallas`` there.
 
 On ``platform="cuda"`` the decision tree is the JAX package's shared-
 geometry branch (its ``routing.py:141-175``) with the shared-memory fit
-test in place of ``fits_vmem``.  One crossover was measured on an H100:
-the whole-solve kernel routes only up to :data:`FUSED_N_MAX` (see
-``PERF.md``); the other crossovers are the TPU's until H100 cells measure
-them (ROADMAP queue 1, item 5).  Off CUDA the answer is ``"xla"``.
-``"mixed"`` (``solve_mixed``) and the distinct-geometry engines are not
-ported yet: requesting one, or a problem the tree sends to one, raises
+test in place of ``fits_vmem``: every N past the resident kernels
+(N > 128) routes to ``"mixed"``, warm single-lane problems included.  One
+crossover was measured on an H100: the whole-solve kernel routes only up
+to :data:`FUSED_N_MAX` (see ``PERF.md``); the other crossovers are the
+TPU's until H100 cells measure them (ROADMAP queue 1, item 5).  Off CUDA
+the answer is ``"xla"``.  The streamed whole solve
+(:func:`~pqp_for_mpc_tpu_torch.ops.tiled_solve_kernel.solve_fused_tiled`,
+K4) is an explicit entry point, as in the JAX package, and no engine here.
+The distinct-geometry engines are not ported yet: requesting one raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -30,7 +38,8 @@ import torch
 from pqp_for_mpc_tpu_torch.config import SolverConfig
 from pqp_for_mpc_tpu_torch.problem import DualQP, PrimalQP
 from pqp_for_mpc_tpu_torch.solver import (SolveResult, _as2d,
-                                          retry_cold_solve, solve_batched)
+                                          retry_cold_solve, solve_batched,
+                                          solve_mixed)
 
 #: lane quantum below which the JAX package's map keeps the small-batch
 #: (receding-horizon) regime on the plain path
@@ -46,7 +55,6 @@ ENGINES = ("xla", "fused", "mixed", "fused_distinct",
            "fused_distinct_tiled")
 
 _NOT_PORTED = {
-    "mixed": "solve_mixed is not ported yet (ROADMAP queue 1, item 7)",
     "fused_distinct": "the distinct-geometry kernels are not ported yet "
                       "(ROADMAP queue 1, item 8; queue 2, K5)",
     "fused_distinct_tiled": "the distinct-geometry kernels are not ported "
@@ -114,11 +122,6 @@ def solve_auto(primal: PrimalQP, dual: DualQP,
     if engine is None:
         engine = route_solve(N, B, False, cfg, m_dim=primal.Gp.shape[-1],
                              platform=platform, warm=Y0 is not None)
-        if engine == "mixed":
-            raise NotImplementedError(
-                f"the router picks 'mixed' for N={N} on {platform} (past "
-                f"the resident kernels), and {_NOT_PORTED['mixed']} — pass "
-                "engine='xla' for the plain PyTorch solve")
         if dual.Qdn_theta is None and engine == "fused":
             # a split-free dual cannot feed the resident kernel, which
             # holds the materialized splits; auto mode downgrades
@@ -135,8 +138,16 @@ def solve_auto(primal: PrimalQP, dual: DualQP,
     if engine == "xla":
         return solve_batched(primal, dual, Y0=Y0, cfg=cfg,
                              retry_cold=retry_cold and Y0 is not None)
-    from pqp_for_mpc_tpu_torch.ops.solve_kernel import solve_fused
-    fn = lambda y0: solve_fused(primal, dual, Y0=y0, cfg=cfg)
+    if engine == "mixed":
+        if platform == "cuda" and cfg.accel_every:
+            # the JAX package forces its bf16 streamed update kernel under
+            # acceleration (its routing.py:224-233); solve_mixed uses it
+            # only past residency
+            cfg = dataclasses.replace(cfg, use_pallas=True)
+        fn = lambda y0: solve_mixed(primal, dual, Y0=y0, cfg=cfg)
+    else:
+        from pqp_for_mpc_tpu_torch.ops.solve_kernel import solve_fused
+        fn = lambda y0: solve_fused(primal, dual, Y0=y0, cfg=cfg)
     if retry_cold and Y0 is not None:
         Y_warm = torch.clamp(_as2d(Y0), min=0.0)
         if Y_warm.shape[1] == 1 and B > 1:

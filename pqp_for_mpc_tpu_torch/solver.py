@@ -11,11 +11,12 @@ loop ``solveQuadraticDual``, PQP_CPU.c:694-750):
 * instances are batched with the batch last, ``Y (N, B)``, so each update
   is two ``(N, N) @ (N, B)`` products and an elementwise multiply;
 * per-instance masks freeze solved lanes (``torch.where(done, Y, Y_next)``);
-* with ``cfg.use_pallas`` on a CUDA tensor whose N fits shared memory the
-  updates between checks run in one launch of the hand-written kernel of
-  :mod:`pqp_for_mpc_tpu_torch.ops.kernels`; past that N the call raises
-  (the streamed kernel is not ported yet).  On CPU tensors the kernel's
-  plain version runs.
+* with ``cfg.use_pallas`` the updates between checks run in one call of a
+  hand-written kernel: the resident K2 of
+  :mod:`pqp_for_mpc_tpu_torch.ops.kernels` where N fits shared memory, the
+  streamed K3 of :mod:`pqp_for_mpc_tpu_torch.ops.tiled_kernel` past it
+  (its matrix built once per solve).  On CPU tensors the kernels' plain
+  versions run.
 
 Convergence test (``terminate``, PQP_CPU.c:673-687), as the JAX package:
 
@@ -24,8 +25,9 @@ Convergence test (``terminate``, PQP_CPU.c:673-687), as the JAX package:
 3. absolute gap:  ``Jp + Jd <= eaj``;
 4. relative gap:  ``(Jp + Jd)/|Jd| <= erj``.
 
-Shared (2-D) geometry only: the distinct-geometry einsum path and
-``solve_mixed`` are later slices of the port (ROADMAP queue 1, items 7-8).
+:func:`solve_mixed` runs a bfloat16 bulk phase, then certifies in float32
+through :func:`solve_batched`.  Shared (2-D) geometry only: the distinct-
+geometry einsum path is a later slice of the port (ROADMAP queue 1, item 8).
 ``precision`` arguments are accepted for the JAX signatures and ignored:
 products run in full float32.
 """
@@ -295,24 +297,25 @@ def _solve_core(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
     dev = Y0.device
 
     use_kernel = cfg.use_pallas
+    streamed = None
     if use_kernel:
         from pqp_for_mpc_tpu_torch.ops import kernels as _kernels
         if not _kernels.fits_resident(N):
-            # past residency the JAX package streams the Hessian through
-            # its tiled update kernel; that kernel has no CUDA port yet
-            if dev.type == "cuda":
-                raise NotImplementedError(
-                    f"use_pallas at N={N}: the resident update kernel takes "
-                    f"N <= {_kernels.N_MAX} and the streamed one (K3) is not "
-                    "ported yet (ROADMAP queue 2, K3) — solve with "
-                    "use_pallas=False")
-            use_kernel = False
+            # past residency the update streams one Qd_hat (K3), built once
+            # per solve; it never needed the materialized splits
+            from pqp_for_mpc_tpu_torch.ops import tiled_kernel as _tiled
+            streamed = _tiled.streamed_matrix(dual.Qd, dual.theta, "float32")
         elif dual.Qdn_theta is None:
             # the resident kernel holds the materialized splits; a
             # split-free dual rides the plain body, as in the JAX package
             use_kernel = False
 
     def run_mult_updates(Y, done, n):
+        if streamed is not None:
+            Ynew = _tiled.streamed_pqp_iterations(
+                *streamed, dual.Fdn, dual.Fdp, Y, num_iters=n,
+                den_eps=cfg.den_eps)
+            return torch.where(done[None, :], Y, Ynew)
         if use_kernel:
             Ynew = _kernels.fused_pqp_iterations(
                 dual.Qdn_theta, dual.Qdp_theta, _as2d(dual.Fdn),
@@ -362,6 +365,153 @@ def _solve_core(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
     iters = torch.where(done, iters, h).to(torch.int32)
     return SolveResult(U=U, Y=Y, iters=iters, converged=done & ~div,
                        feasible=feas, Jp=Jp, Jd=Jd, diverged=div)
+
+
+def solve_mixed(primal: PrimalQP, dual: DualQP,
+                Y0: Optional[torch.Tensor] = None,
+                cfg: SolverConfig = SolverConfig(),
+                floor_frac: float = 0.25,
+                floor_checks: int = 2) -> SolveResult:
+    """Mixed-precision solve for large N: a bfloat16 bulk phase, then
+    :func:`solve_batched` refines in float32 from the bf16 iterate to the
+    full certification tolerances (the JAX ``solve_mixed``).  The result is
+    certified on the TRUE float32 problem; bf16 only speeds the journey.
+
+    The rules of the JAX docstring, each kept:
+
+    * one consistent bf16 problem: ``Qd`` (its diagonal clamped at 0 when
+      the kernel runs) is rounded ONCE to bfloat16 and split exactly by
+      sign; theta comes from the ROUNDED negative part's rowsums (floored
+      at ``cfg.theta_floor``) and is applied as the same float32 term on
+      both sides of the update.  Products take ``Y`` rounded to bf16 and sum
+      in float32;
+    * phase 1 freezes a lane when it certifies (:func:`check_terminate` on
+      the true problem), goes non-finite, or reaches the bf16 floor: the
+      gap of the bf16 problem ``g_bf = Y'(Qd_bf Y + Fd)`` below
+      ``floor_frac`` times the true gap for ``floor_checks`` consecutive
+      checks;
+    * non-finite phase-1 lanes restart phase 2 from the cold start ``y0``;
+    * ``cfg.max_iters`` caps each phase; the reported ``iters`` is the sum
+      of both phases.
+
+    With ``cfg.use_pallas`` past residency (N > 128) the bulk updates run in
+    the streamed kernel's bf16 mode (K3) and phase 2 in its f32 mode; CPU
+    tensors run its plain version.  Shared (2-D) geometry only.
+    """
+    if dual.Qd.dim() == 3:
+        raise NotImplementedError(
+            "solve_mixed on distinct (3-D) geometry is not ported yet "
+            "(ROADMAP queue 1, item 8)")
+    N = dual.n_con
+    B = _batch_of(dual)
+    dev = dual.Qd.device
+    if Y0 is None:
+        Y0 = torch.full((N, B), cfg.y0, dtype=torch.float32, device=dev)
+    else:
+        Y0 = _as2d(Y0)
+        if Y0.shape[1] == 1 and B > 1:
+            Y0 = Y0.expand(N, B)
+        else:
+            B = Y0.shape[1]
+
+    use_kernel = False
+    if cfg.use_pallas:
+        from pqp_for_mpc_tpu_torch.ops import kernels as _kernels
+        use_kernel = not _kernels.fits_resident(N)
+    floor = torch.full_like(dual.theta, cfg.theta_floor)
+    if use_kernel:
+        # clamp the diagonal BEFORE the one rounding, exactly as the
+        # kernel's bf16 stream is built: phase 1 is one perturbed problem
+        # whichever engine runs a given step
+        from pqp_for_mpc_tpu_torch.ops import tiled_kernel as _tiled
+        Qd_bf, theta = _tiled.streamed_matrix(dual.Qd, floor, "bfloat16")
+    else:
+        Qd_bf = dual.Qd.to(torch.bfloat16)
+        theta = torch.maximum(
+            floor, torch.clamp(-Qd_bf.float(), min=0.0).sum(dim=1))
+    Qbf = Qd_bf.float()                  # the rounded matrix, exactly
+    if not use_kernel:
+        Qdn_bf = torch.clamp(-Qbf, min=0.0)
+        Qdp_bf = torch.clamp(Qbf, min=0.0)
+    th = theta[:, None]
+    Fdn = _as2d(dual.Fdn).expand(N, B)
+    Fdp = _as2d(dual.Fdp).expand(N, B)
+    Fd = _as2d(dual.Fd)
+
+    def dot_bf(A, Y):
+        # bf16 x bf16 products are exact in float32; the sum stays float32
+        return A @ Y.bfloat16().float()
+
+    def upd(Y):
+        tY = th * Y
+        num = dot_bf(Qdn_bf, Y) + tY + Fdn
+        den = dot_bf(Qdp_bf, Y) + tY + Fdp
+        if cfg.den_eps:
+            den = torch.clamp(den, min=cfg.den_eps)
+        return (num / den) * Y
+
+    def accel_bf(Y, frozen):
+        # accel_step on the bf16 problem (same safeguarded algebra)
+        grad = dot_bf(Qbf, Y) + Fd
+        p = torch.where((Y > 0.0) | (grad < 0.0), -grad,
+                        torch.zeros_like(grad))
+        pQp = (p * dot_bf(Qbf, p)).sum(dim=0)
+        alpha = torch.where(pQp > 0,
+                            (p * p).sum(dim=0) / torch.clamp(pQp, min=1e-30),
+                            torch.zeros_like(pQp))
+        Yn = torch.clamp(Y + alpha[None, :] * p, min=0.0)
+        fY = 0.5 * (Y * (grad + Fd)).sum(dim=0)
+        fYn = (0.5 * (Yn * dot_bf(Qbf, Yn)).sum(dim=0)
+               + (Fd * Yn).sum(dim=0))
+        keep = (fYn <= fY) & ~frozen
+        return torch.where(keep[None, :], Yn, Y)
+
+    k = cfg.check_every
+
+    def mult(n, Y, frozen):
+        if use_kernel:
+            Yn = _tiled.streamed_pqp_iterations(Qd_bf, theta, Fdn, Fdp, Y,
+                                                num_iters=n,
+                                                den_eps=cfg.den_eps)
+            return torch.where(frozen[None, :], Y, Yn)
+        for _ in range(n):
+            Y = torch.where(frozen[None, :], Y, upd(Y))
+        return Y
+
+    def run_updates(Y, frozen):
+        if not cfg.accel_every:
+            return mult(k, Y, frozen)
+        for _ in range(k // cfg.accel_every):
+            Y = accel_bf(mult(cfg.accel_every, Y, frozen), frozen)
+        return Y
+
+    Y = Y0
+    frozen = torch.zeros(B, dtype=torch.bool, device=dev)
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    slow = torch.zeros(B, dtype=torch.int32, device=dev)
+    h = 0
+    # one host sync per check, as in solve_batched
+    while h <= cfg.max_iters and not bool(frozen.all()):
+        ok, _, _, Jp, Jd = check_terminate(primal, dual, Y, cfg)
+        g = (complementarity_gap(dual, Y) if cfg.gap_from_complementarity
+             else Jp + Jd).abs()
+        g_bf = (Y * (dot_bf(Qbf, Y) + Fd)).sum(dim=0).abs()
+        bad = ~torch.isfinite(Y).all(dim=0) & ~frozen
+        slow = torch.where(g_bf < floor_frac * g, slow + 1,
+                           torch.zeros_like(slow))
+        newly = (ok | bad | (slow >= floor_checks)) & ~frozen
+        iters = torch.where(newly, h, iters)
+        frozen = frozen | newly
+        Y = run_updates(Y, frozen)
+        h += k
+    it1 = torch.where(frozen, iters, h).to(torch.int32)
+
+    # a non-finite lane would poison its f32 warm start forever (NaN/Inf
+    # are absorbing under the multiplicative update): restart it cold
+    lane_ok = torch.isfinite(Y).all(dim=0)
+    Y1 = torch.where(lane_ok[None, :], Y, torch.full_like(Y, cfg.y0))
+    res = solve_batched(primal, dual, Y0=Y1, cfg=cfg)
+    return dataclasses.replace(res, iters=(res.iters + it1).to(torch.int32))
 
 
 def solve(primal: PrimalQP, dual: Optional[DualQP] = None,

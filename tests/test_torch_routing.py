@@ -47,6 +47,10 @@ ROUTES = [
     ((28, 64, SMOKE, False, "cuda", 7), "xla"),          # small batch
     ((28, 4096, MPC_CONFIG, False, "cuda", 7), "xla"),   # dual-grad cert
     ((200, 4096, SMOKE, False, "cuda", 50), "mixed"),    # past residency
+    # warm and single-lane past residency: still "mixed" (the tree tests
+    # residency before batch size, as the JAX package's does)
+    ((256, 1, SMOKE, True, "cuda", 64), "mixed"),
+    ((4096, 128, SMOKE, False, "cuda", 1024), "mixed"),
     ((128, 4096, SMOKE, False, "cuda", 32), "xla"),      # K1 smem refuses
     ((64, 4096, SMOKE, False, "cuda", 16), "fused"),     # K1's crossover
     ((68, 4096, SMOKE, False, "cuda", 17), "xla"),       # past it
@@ -72,7 +76,7 @@ def test_forced_fused_on_cpu_raises():
         pqp.solve_auto(primal, dual, cfg=SMOKE, engine="fused")
 
 
-@pytest.mark.parametrize("engine", ["mixed", "fused_distinct",
+@pytest.mark.parametrize("engine", ["fused_distinct",
                                     "fused_distinct_tiled"])
 def test_unported_engines_raise(engine):
     primal, dual = _problem()
@@ -92,6 +96,48 @@ def test_solve_auto_matches_solve_batched_on_cpu(materialize):
     assert bool((auto.iters == ref.iters).all())
 
 
+@pytest.mark.parametrize("accel", [False, True])
+def test_solve_auto_mixed_engine_matches_jax_solve_mixed(accel):
+    # engine="mixed" dispatches to solve_mixed; on the CPU nothing forces
+    # the kernel, as in the JAX package off the TPU.  Bar: the oracle
+    # parity bar of tests/test_torch_solver.py
+    import jax.numpy as jnp
+    from pqp_for_mpc_tpu import solver as jsolver
+    from pqp_for_mpc_tpu.config import SolverConfig as JConfig
+    from pqp_for_mpc_tpu.dual import dualize as jdualize
+    from pqp_for_mpc_tpu.models import MPCSpec as JSpec
+    from pqp_for_mpc_tpu.models import condense as jcondense
+    from pqp_for_mpc_tpu.models import double_integrator as jplant
+    from pqp_for_mpc_tpu_torch import convert
+
+    # accelerated at check_every=4, as the port's other accelerated parity
+    # cases: the accel acceptance drifts a lane by one cadence (ROADMAP
+    # queue 3), and the bar is 5 iterations at small counts
+    cfg = dataclasses.replace(SMOKE, check_every=4 if accel else 8,
+                              accel_every=4 if accel else 0)
+    spec = JSpec(jplant(), horizon=7, Qy=np.eye(1), R=0.05 * np.eye(1),
+                 r=np.array([2.5]), u_min=-np.ones(1), u_max=np.ones(1),
+                 du_max=0.5 * np.ones(1))
+    data = jcondense(spec)
+    x = np.random.default_rng(0).normal(0.0, 0.5, (2, 16)).astype(np.float32)
+    jp = data.assemble(x=jnp.asarray(x), Qp=data.qp())
+    jd = jdualize(jp)
+    want = jsolver.solve_mixed(jp, jd,
+                               cfg=JConfig(**dataclasses.asdict(cfg)))
+    got = pqp.solve_auto(convert.primal_from_numpy(convert.to_numpy(jp)),
+                         convert.dual_from_numpy(convert.to_numpy(jd)),
+                         cfg=cfg, engine="mixed")
+    conv = np.asarray(want.converged)
+    assert conv.all()
+    np.testing.assert_array_equal(got.converged.numpy(), conv)
+    it_w = np.asarray(want.iters).astype(np.int64)
+    bar = -(-np.maximum(5, it_w // 5) // cfg.check_every) * cfg.check_every
+    assert (np.abs(got.iters.numpy() - it_w) <= bar).all()
+    scale = max(1.0, float(np.abs(np.asarray(want.U)).max()))
+    np.testing.assert_allclose(got.U.numpy(), np.asarray(want.U),
+                               atol=5e-3 * scale, rtol=5e-3)
+
+
 def test_solve_auto_retry_cold_rescues_poisoned_warm_start():
     primal, dual = _problem()
     cfg = dataclasses.replace(SMOKE, max_iters=800)
@@ -108,6 +154,8 @@ def test_import_leaves_jax_out():
             " import pqp_for_mpc_tpu_torch, pqp_for_mpc_tpu_torch.models,"
             " pqp_for_mpc_tpu_torch.ops.kernels,"
             " pqp_for_mpc_tpu_torch.ops.solve_kernel,"
+            " pqp_for_mpc_tpu_torch.ops.tiled_kernel,"
+            " pqp_for_mpc_tpu_torch.ops.tiled_solve_kernel,"
             " pqp_for_mpc_tpu_torch.convert;"
             " print(sorted(m for m in set(sys.modules) - before"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'pqp_for_mpc_tpu')))")
