@@ -18,15 +18,37 @@ at full size and times them:
   workload (N = 4096, M = 1024, B = 128, built from seed 0 as
   ``benchmarks/bench_tiled_solve.py`` builds it) under its ``--accel``
   configuration; and the H = 64 closed loop (N = 256, warm B = 1), which
-  the router also sends to ``"mixed"``, timed against the plain route.
+  the router also sends to ``"mixed"``, timed against the plain route;
+* the distinct-geometry paths (kernels K5, K6, K7), one geometry per
+  instance built from seed 0 as ``benchmarks/bench_distinct.py:
+  make_instances`` builds it: the resident path at B = 1024, N = 400,
+  M = 100 (``solve_auto`` -> ``"fused_distinct"`` -> K5, and the plain
+  ``solve_batched``) and the streamed path at B = 8, N = 2048, M = 512
+  (``solve_auto`` -> ``"mixed"`` -> K7 bf16 then the plain f32 refine,
+  ``solve_fused_distinct_tiled`` -> K6 on the split-free dual, and the plain
+  ``solve_batched``), each under its JAX benchmark's configuration.
 
 Each kernel is held against its plain version at the shapes its path gives
 it.  The ``launches`` of the kernel table are those of each path's own
-drive, counted from 0.  Every phase prints one JSON line and raises on
-failure.  The last two lines are the kernel table (``{"kernels": [...]}``)
-and the result line (``{"ok": true, "device": {...}}``).  Without a CUDA
-device, or without the package beside it, the script exits non-zero and
-prints no result.
+drive, counted from 0.  K7's row is its bf16 mode, the one its path runs;
+its float32 mode is held and timed too, and sits in the row as
+``float32_mode``.  The resident distinct route is held to the share of
+lanes its benchmark configuration certifies in both packages
+(:data:`DISTINCT_RESIDENT_CERTIFIED`) and to the plain solve's verdicts,
+and prints the lanes it leaves uncertified.  Each kernel's ``bound_ms`` is
+the least time an
+H100 SXM could take for that call — the larger of its bytes (each input
+read once, each output written once) over 3.35 TB/s and its operations
+(counted from this run's iterations) over 67 TFLOP/s in float32 or
+989 TFLOP/s in bf16 — and ``bound_by`` names the term.  Where a kernel's
+matrices exceed the 50 MB L2, the time its design takes to re-read them on
+every pass (its stream floor, not a bound of the function) is printed on
+the ``stream_floors`` line.  No single PyTorch call computes any of these
+functions, so ``library_ms`` is null.  Every phase prints one JSON line and
+raises on failure.  The last two lines are the kernel table
+(``{"kernels": [...]}``) and the result line (``{"ok": true, "device":
+{...}}``).  Without a CUDA device, or without the package beside it, the
+script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -50,6 +72,27 @@ N_BIG, M_BIG, B_BIG = 4096, 1024, 128
 #: --accel configuration (benchmarks/MIXED_BENCH_r5.json, row 4): an
 #: algorithmic cross-check only, not a gate and not a time
 JAX_ITERS = {"f32": 4737.0, "mixed": 5714.4}
+#: the distinct workloads: bench_distinct.py's defaults (resident) and
+#: bench_mixed.py --distinct's (streamed)
+B_DR, N_DR, M_DR = 1024, 400, 100
+B_DS, N_DS, M_DS = 8, 2048, 512
+#: mean iterations the JAX package recorded on the streamed distinct
+#: workload (benchmarks/MIXED_BENCH_r5.json rows 1 and 5): a cross-check
+JAX_DISTINCT_ITERS = {"f32": 5301.0, "mixed": "8229-8233"}
+#: the share of the resident distinct workload that bench_distinct.py's
+#: configuration certifies: the other lanes are still infeasible at
+#: max_iters = 20,000 in both packages (the port certifies 966 of 1,024 on
+#: an H100, kernel and plain alike; tests/test_torch_distinct.py solves 18
+#: lanes of this draw in the JAX package — nine of the card's uncertified
+#: lanes, spread over the batch, and nine it certified: the JAX package
+#: leaves the first nine infeasible at max_iters and certifies the others
+#: in as many iterations as the card), so this route is held to that share
+#: and to the plain solve's verdicts, not to 99%
+DISTINCT_RESIDENT_CERTIFIED = 0.93
+
+#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32 on the
+#: CUDA cores and bf16 on the tensor cores, FLOP/s; and the L2 size
+HBM_BPS, F32_FLOPS, BF16_FLOPS, L2_BYTES = 3.35e12, 67e12, 989e12, 50e6
 
 
 def emit(phase: str, **fields) -> None:
@@ -91,6 +134,82 @@ def streamed_workload(device, seed: int = 0):
     primal = PrimalQP(Qp=t(Qp), Qp_inv=t(np.linalg.inv(Qp)), Fp=t(Fp),
                       Mp=torch.zeros(B, device=device), Gp=t(Gp), Kp=t(Kp))
     return primal, dualize(primal)
+
+
+def distinct_workload(B: int, M: int, N: int, device, seed: int = 0,
+                      gaussian_gp: bool = False):
+    """B distinct random QPs drawn from ``seed`` with NumPy exactly as
+    ``benchmarks/bench_distinct.py:make_instances`` draws them: a dense SPD
+    Qp per instance and {-1, 0, 1} Gp, or (``gaussian_gp``) gaussian Gp with
+    ``(M - 2) I`` added to Qp.  Returns the port's PrimalQP."""
+    import torch
+    from pqp_for_mpc_tpu_torch import PrimalQP
+    rng = np.random.default_rng(seed)
+    L = rng.standard_normal((B, M, M)).astype(np.float32) / np.sqrt(M)
+    Qp = np.einsum("bij,bkj->bik", L, L) + 2.0 * np.eye(M, dtype=np.float32)
+    if gaussian_gp:
+        Qp = Qp + (M - 2.0) * np.eye(M, dtype=np.float32)
+        Qp_inv = np.linalg.inv(Qp).astype(np.float32)
+        Gp = rng.standard_normal((B, N, M)).astype(np.float32)
+        Fp = (rng.standard_normal((M, B)) * 3).astype(np.float32)
+        Mp = np.zeros(B, np.float32)
+        Kp = rng.uniform(1.0, 10.0, (N, B)).astype(np.float32)
+    else:
+        Qp_inv = np.linalg.inv(Qp).astype(np.float32)
+        Gp = rng.integers(-1, 2, (B, N, M)).astype(np.float32)
+        Fp = (rng.standard_normal((M, B)) * 3).astype(np.float32)
+        Mp = rng.standard_normal(B).astype(np.float32)
+        Kp = rng.uniform(1.0, 8.0, (N, B)).astype(np.float32)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return PrimalQP(Qp=t(Qp), Qp_inv=t(Qp_inv), Fp=t(Fp), Mp=t(Mp),
+                    Gp=t(Gp), Kp=t(Kp))
+
+
+def stored_bytes(*tensors) -> int:
+    """Bytes of the distinct storages behind ``tensors`` (a stride-0 view
+    counts as the storage it reads)."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def bound(in_bytes: float, out_bytes: float, flops: float,
+          peak: float) -> dict:
+    """The least time the card could take: bytes (inputs once, outputs
+    once) over HBM against operations over ``peak``."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BPS * 1e3
+    t_ops = flops / peak * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def stream_floor_ms(stream_bytes: float) -> float:
+    """The floor of a design that re-reads ``stream_bytes`` from HBM (its
+    matrices exceed the L2): milliseconds at 3.35 TB/s."""
+    return stream_bytes / HBM_BPS * 1e3
+
+
+def solve_work(n: int, m: int, iters, check_every: int, accel_every: int,
+               update_bytes: float, check_bytes: float,
+               accel_bytes: float):
+    """(flops, streamed bytes) of whole solves whose lanes exited at
+    ``iters``: per lane ``iters - 1`` updates (two n x n products), one
+    check per ``check_every`` updates plus the final one (Gp'Y, Qp^-1 t,
+    Gp U, Qd Y, Qp U), one accel step (three Qd products) per
+    ``accel_every`` updates; ``*_bytes`` are the matrix bytes one such pass
+    re-reads for one lane (0 where they stay on chip)."""
+    import torch
+    upd = (iters.long() - 1).clamp(min=0).double()
+    checks = torch.div(upd, check_every, rounding_mode="floor") + 2
+    acc = (torch.div(upd, accel_every, rounding_mode="floor")
+           if accel_every else upd * 0)
+    flops = (upd * 4 * n * n + checks * (4 * n * m + 2 * n * n + 4 * m * m)
+             + acc * 6 * n * n)
+    streamed = upd * update_bytes + checks * check_bytes + acc * accel_bytes
+    return float(flops.sum()), float(streamed.sum())
 
 
 def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -310,8 +429,8 @@ def main() -> int:
     # -- each kernel against its plain version at the main path's shapes,
     #    then both timed ------------------------------------------------
     args, kw = solve_kernel.fused_inputs(primal, dual, None, smoke_cfg)
-    k1_cmp = k1_parity(primal, dual, smoke_cfg,
-                       solve_kernel.fused_full_solve(*args, **kw),
+    out_k1 = solve_kernel.fused_full_solve(*args, **kw)
+    k1_cmp = k1_parity(primal, dual, smoke_cfg, out_k1,
                        solve_kernel.fused_full_solve_reference(*args, **kw))
     emit("k1_vs_plain", batch=B_MAIN, **k1_cmp)
     require(k1_cmp["ok"], f"K1 disagrees with its plain version at the "
@@ -342,6 +461,18 @@ def main() -> int:
     emit("kernel_times", batch=B_MAIN, nvidia_smi=smi, k1_ms=k1_ms,
          k1_plain_ms=k1_plain_ms, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
          k2_num_iters=smoke_cfg.check_every)
+    n28, m7 = dual.n_con, primal.n_var
+    k1_flops, _ = solve_work(n28, m7, out_k1[2], smoke_cfg.check_every,
+                             smoke_cfg.accel_every, 0, 0, 0)
+    bounds = {
+        "k1": bound(stored_bytes(*args), sum(
+            t.numel() * t.element_size() for t in out_k1), k1_flops,
+            F32_FLOPS),
+        "k2": bound(stored_bytes(*k2_args), 4 * Yb.numel(),
+                    k2_kw["num_iters"] * 4.0 * n28 * n28 * B_MAIN,
+                    F32_FLOPS),
+    }
+    del out_k1
     del primal, dual, Yb, k2_args, args, kw
     torch.cuda.empty_cache()
 
@@ -372,9 +503,8 @@ def main() -> int:
                                                                 **t_kw)
     torch.cuda.synchronize()
     k4_plain_first_s = time.perf_counter() - k4_plain_t0
-    k4_cmp = k4_parity(
-        tiled_solve_kernel.fused_full_solve_tiled(*t_args, **t_kw), out_p,
-        big_cfg.check_every)
+    out_k4 = tiled_solve_kernel.fused_full_solve_tiled(*t_args, **t_kw)
+    k4_cmp = k4_parity(out_k4, out_p, big_cfg.check_every)
     emit("k4_vs_plain", n=N_BIG, m=M_BIG, batch=B_BIG, **k4_cmp)
     require(k4_cmp["ok"], f"K4 disagrees with its plain version: {k4_cmp}")
     errs["k4"] = [k4_cmp["max_abs_err"]]
@@ -435,6 +565,31 @@ def main() -> int:
             *t_args, **t_kw), 1, warmup=False),
         cuda_ms(lambda: tiled_solve_kernel.fused_full_solve_tiled_reference(
             *t_args, **t_kw), 1, warmup=False))
+    floors = {}
+    for mode, (Q, th) in streams.items():
+        q_bytes = Q.numel() * Q.element_size()
+        bounds["k3_" + mode] = bound(
+            stored_bytes(Q, th, ld.Fdn, ld.Fdp, Y3), 4 * Y3.numel(),
+            k3_kw["num_iters"] * 4.0 * N_BIG * N_BIG * B_BIG,
+            F32_FLOPS if mode == "float32" else BF16_FLOPS)
+        if q_bytes > L2_BYTES:
+            floors["k3_" + mode] = stream_floor_ms(k3_kw["num_iters"]
+                                                   * q_bytes)
+    # K4 streams its matrices once per pass for every lane together:
+    # rounds of check_every updates, a check (Qd_hat, Gp twice, Qp,
+    # Qp^-1) and the accel step (three Qd_hat passes)
+    k4_flops, _ = solve_work(N_BIG, M_BIG, out_k4[2], big_cfg.check_every,
+                             big_cfg.accel_every, 0, 0, 0)
+    rounds = (int(out_k4[2].max()) - 1) // big_cfg.check_every + 2
+    qh_b, gp_b, qp_b = 4 * N_BIG ** 2, 4 * N_BIG * M_BIG, 4 * M_BIG ** 2
+    bounds["k4"] = bound(
+        stored_bytes(*t_args), sum(t.numel() * t.element_size()
+                                   for t in out_k4), k4_flops, F32_FLOPS)
+    floors["k4"] = stream_floor_ms(
+        rounds * ((big_cfg.check_every + 1 + (3 if big_cfg.accel_every
+                                              else 0)) * qh_b
+                  + 2 * gp_b + 2 * qp_b))
+    del out_k4
     emit("streamed_kernel_times", n=N_BIG, m=M_BIG, batch=B_BIG,
          nvidia_smi=smi, k3_num_iters=big_cfg.check_every,
          k4_plain_first_run_s=k4_plain_first_s,
@@ -477,32 +632,230 @@ def main() -> int:
          faster=min(loop_rows, key=loop_rows.get),
          ratio_mixed_over_xla=loop_rows["mixed"] / loop_rows["xla"])
 
-    print(json.dumps({"kernels": [
-        {"name": "K1 fused_full_solve", "route": "cuda",
-         "source": "pqp_for_mpc_tpu_torch/csrc/full_solve.cu",
-         "replaces": "pqp_for_mpc_tpu/ops/solve_kernel.py:295",
-         "launches": launches["k1"], "max_abs_err": max(errs["k1"]),
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "K2 fused_pqp_iterations", "route": "cuda",
-         "source": "pqp_for_mpc_tpu_torch/csrc/pqp_iterations.cu",
-         "replaces": "pqp_for_mpc_tpu/ops/kernels.py:104",
-         "launches": launches["k2"], "max_abs_err": max(errs["k2"]),
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        *[{"name": f"K3 fused_pqp_iterations_tiled ({mode})",
-           "route": "cuda",
-           "source": "pqp_for_mpc_tpu_torch/csrc/pqp_iterations_tiled.cu",
-           "replaces": "pqp_for_mpc_tpu/ops/tiled_kernel.py:177",
-           "launches": big_launches["k3_" + mode],
-           "max_abs_err": max(errs["k3_" + mode]),
-           "ms": big_times["k3_" + mode][0],
-           "plain_ms": big_times["k3_" + mode][1]}
-          for mode in ("float32", "bfloat16")],
-        {"name": "K4 fused_full_solve_tiled", "route": "cuda",
-         "source": "pqp_for_mpc_tpu_torch/csrc/full_solve_tiled.cu",
-         "replaces": "pqp_for_mpc_tpu/ops/tiled_solve_kernel.py:324",
-         "launches": big_launches["k4"], "max_abs_err": max(errs["k4"]),
-         "ms": big_times["k4"][0], "plain_ms": big_times["k4"][1]},
-    ]}), flush=True)
+    # -- phase 10: the distinct resident path (K5) -------------------------
+    from pqp_for_mpc_tpu_torch.ops import (distinct_kernel,
+                                           distinct_tiled_kernel)
+    # bench_distinct.py's configuration (its lines 83-85)
+    dr_cfg = pqp.SolverConfig(max_iters=20000, check_every=8, y0=1.0,
+                              erc=1e-4, eac=1e-4, eaj=1e-3, erj=1e-4,
+                              strict_weak_duality=False)
+    dp = distinct_workload(B_DR, M_DR, N_DR, dev)
+    dd = pqp.dualize_distinct(dp, theta_floor=dr_cfg.theta_floor)
+    d_args, d_kw = distinct_kernel.distinct_inputs(dp, dd, None, dr_cfg)
+    out_k5 = distinct_kernel.fused_full_solve_distinct(*d_args, **d_kw)
+    out_p = distinct_kernel.fused_full_solve_distinct_reference(*d_args,
+                                                                **d_kw)
+    torch.cuda.synchronize()
+    k5_cmp = k4_parity(out_k5, out_p, dr_cfg.check_every)
+    emit("k5_vs_plain", n=N_DR, m=M_DR, batch=B_DR, **k5_cmp)
+    require(k5_cmp["ok"], f"K5 disagrees with its plain version: {k5_cmp}")
+    errs["k5"] = [k5_cmp["max_abs_err"]]
+    del out_p
+    route = pqp.route_solve(N_DR, B_DR, True, dr_cfg, m_dim=M_DR,
+                            platform="cuda")
+    require(route == "fused_distinct",
+            f"distinct N={N_DR} routed to {route!r}")
+    distinct_kernel.fused_full_solve_distinct.launches = 0
+    dr_runs = {
+        "k5_route": lambda: pqp.solve_auto(dp, dd, cfg=dr_cfg),
+        "plain": lambda: pqp.solve_batched(dp, dd, cfg=dr_cfg),
+    }
+    dr_rows, dr_conv, dr_iters = {}, {}, {}
+    for name, fn in dr_runs.items():
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        conv = float(res.converged.float().mean())
+        dr_rows[name] = dict(
+            converged_frac=conv, iters_mean=float(res.iters.float().mean()),
+            iters_max=int(res.iters.max()),
+            infeasible_uncertified=int((~res.feasible & ~res.converged).sum()),
+            seconds_first_run=time.perf_counter() - t0)
+        require(conv >= DISTINCT_RESIDENT_CERTIFIED,
+                f"distinct {name}: only {conv:.4f} converged")
+        dr_conv[name] = res.converged
+        dr_iters[name] = res.iters
+        del res
+    agree = float((dr_conv["k5_route"] == dr_conv["plain"]).float().mean())
+    # the lanes left uncertified and the first 16 lanes' iterations, for
+    # the CPU comparison with the JAX package on the same draw
+    # (tests/test_torch_distinct.py::test_bench_distinct_*_fail_alike)
+    emit("distinct_resident_verdicts", converged_agree=agree,
+         uncertified_lanes=torch.nonzero(~dr_conv["k5_route"]).flatten()
+         .tolist(),
+         iters_lanes_0_15={k: v[:16].tolist() for k, v in dr_iters.items()})
+    require(agree >= 0.999, f"K5 route and plain verdicts agree on only "
+                            f"{agree:.4f} of the lanes")
+    del dr_conv, dr_iters
+    launches["k5"] = distinct_kernel.fused_full_solve_distinct.launches
+    emit("distinct_resident_launches", k5=launches["k5"])
+    require(launches["k5"] > 0, "solve_auto did not launch K5")
+    for name, fn in dr_runs.items():
+        ms = cuda_ms(fn, reps=1, warmup=False)
+        emit("distinct_resident_path", engine=name, n=N_DR, m=M_DR,
+             batch=B_DR, seconds_per_batch=ms / 1e3, nvidia_smi=smi,
+             **dr_rows[name])
+    times = {"k5": (
+        cuda_ms(lambda: distinct_kernel.fused_full_solve_distinct(
+            *d_args, **d_kw), 1, warmup=False),
+        cuda_ms(lambda: distinct_kernel.fused_full_solve_distinct_reference(
+            *d_args, **d_kw), 1, warmup=False))}
+    k5_flops, k5_stream = solve_work(
+        N_DR, M_DR, out_k5[2], dr_cfg.check_every, dr_cfg.accel_every,
+        8.0 * N_DR ** 2, 4.0 * (N_DR ** 2 + 2 * N_DR * M_DR + 2 * M_DR ** 2),
+        12.0 * N_DR ** 2)
+    bounds["k5"] = bound(stored_bytes(*d_args), sum(
+        t.numel() * t.element_size() for t in out_k5), k5_flops, F32_FLOPS)
+    floors["k5"] = stream_floor_ms(k5_stream)
+    del dp, dd, d_args, out_k5
+    torch.cuda.empty_cache()
+
+    # -- phase 11: the distinct streamed path (K7, K6) --------------------
+    # bench_mixed.py --distinct --accel's configuration (its lines 78-83)
+    ds_cfg = pqp.SolverConfig(max_iters=30000, check_every=16,
+                              accel_every=16, strict_weak_duality=False,
+                              gap_from_complementarity=True, erc=1e-6,
+                              eac=1e-6, eaj=1e-6, erj=1e-6)
+    sp = distinct_workload(B_DS, M_DS, N_DS, dev, gaussian_gp=True)
+    sd = pqp.dualize_distinct(sp, theta_floor=ds_cfg.theta_floor)
+    sd_free = dataclasses.replace(sd, Qdp_theta=None, Qdn_theta=None)
+    Y7 = torch.as_tensor(np.random.default_rng(5).uniform(
+        0.5, 2.0, (N_DS, B_DS)).astype(np.float32), device=dev)
+    k7_kw = dict(num_iters=ds_cfg.check_every, den_eps=ds_cfg.den_eps)
+    k7_streams = {mode: distinct_tiled_kernel.distinct_streamed_matrix(
+        sd.Qd, sd.theta, mode) for mode in ("float32", "bfloat16")}
+    k7 = distinct_tiled_kernel.distinct_streamed_iterations
+    k7_plain = distinct_tiled_kernel.distinct_streamed_iterations_reference
+    for mode, (Q, th) in k7_streams.items():
+        k7_args = (Q, th, sd.Fdn, sd.Fdp, Y7)
+        got, want = k7(*k7_args, **k7_kw), k7_plain(*k7_args, **k7_kw)
+        cmp = k3_parity(got, want, rtol=1e-5 if mode == "float32" else 1e-3)
+        emit("k7_vs_plain", mode=mode, n=N_DS, batch=B_DS,
+             num_iters=ds_cfg.check_every, **cmp)
+        require(cmp["ok"], f"K7 ({mode}) disagrees with its plain version: "
+                           f"{cmp}")
+        errs["k7_" + mode] = [cmp["max_abs_err"]]
+        require(bool((k7(*k7_args, **k7_kw) == got).all()),
+                f"K7 ({mode}) did not repeat its bits")
+    s_args, s_kw = distinct_tiled_kernel.distinct_tiled_inputs(sp, sd_free,
+                                                               None, ds_cfg)
+    k6 = distinct_tiled_kernel.fused_full_solve_distinct_tiled
+    k6_plain = distinct_tiled_kernel.fused_full_solve_distinct_tiled_reference
+    out_k6 = k6(*s_args, **s_kw)
+    out_p = k6_plain(*s_args, **s_kw)
+    torch.cuda.synchronize()
+    k6_cmp = k4_parity(out_k6, out_p, ds_cfg.check_every)
+    emit("k6_vs_plain", n=N_DS, m=M_DS, batch=B_DS, **k6_cmp)
+    require(k6_cmp["ok"], f"K6 disagrees with its plain version: {k6_cmp}")
+    errs["k6"] = [k6_cmp["max_abs_err"]]
+    del out_p
+    route = pqp.route_solve(N_DS, B_DS, True, ds_cfg, m_dim=M_DS,
+                            platform="cuda")
+    require(route == "mixed", f"distinct N={N_DS} routed to {route!r}")
+    k7.launches["float32"] = k7.launches["bfloat16"] = 0
+    k6.launches = 0
+    ds_runs = {
+        "mixed_route": (lambda: pqp.solve_auto(sp, sd, cfg=ds_cfg),
+                        "mixed"),
+        "k6_route": (lambda: pqp.solve_fused_distinct_tiled(
+            sp, sd_free, cfg=ds_cfg), "f32"),
+        "plain": (lambda: pqp.solve_batched(sp, sd, cfg=ds_cfg), "f32"),
+    }
+    ds_rows = {}
+    for name, (fn, record) in ds_runs.items():
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        conv = int(res.converged.sum())
+        ds_rows[name] = dict(
+            converged=conv, iters_mean=float(res.iters.float().mean()),
+            iters_max=int(res.iters.max()),
+            jax_record_iters_mean=JAX_DISTINCT_ITERS[record],
+            seconds_first_run=time.perf_counter() - t0)
+        require(conv == B_DS, f"distinct {name}: {conv} of {B_DS} converged")
+        del res
+    launches.update(k7_float32=k7.launches["float32"],
+                    k7_bfloat16=k7.launches["bfloat16"], k6=k6.launches)
+    emit("distinct_streamed_launches", k7_float32=launches["k7_float32"],
+         k7_bfloat16=launches["k7_bfloat16"], k6=launches["k6"])
+    require(launches["k7_bfloat16"] > 0,
+            "solve_auto (mixed) did not launch K7 in bf16 mode")
+    require(launches["k6"] > 0, "solve_fused_distinct_tiled did not launch K6")
+    for name, (fn, _) in ds_runs.items():
+        ms = cuda_ms(fn, reps=1, warmup=False)
+        emit("distinct_streamed_path", engine=name, n=N_DS, m=M_DS,
+             batch=B_DS, seconds_per_batch=ms / 1e3, nvidia_smi=smi,
+             **ds_rows[name])
+    for mode, (Q, th) in k7_streams.items():
+        k7_args = (Q, th, sd.Fdn, sd.Fdp, Y7)
+        times["k7_" + mode] = (cuda_ms(lambda: k7(*k7_args, **k7_kw), 5),
+                               cuda_ms(lambda: k7_plain(*k7_args, **k7_kw),
+                                       5))
+        q_bytes = Q.numel() * Q.element_size()
+        bounds["k7_" + mode] = bound(
+            stored_bytes(Q, th, sd.Fdn, sd.Fdp, Y7), 4 * Y7.numel(),
+            k7_kw["num_iters"] * 4.0 * N_DS * N_DS * B_DS,
+            F32_FLOPS if mode == "float32" else BF16_FLOPS)
+        if q_bytes > L2_BYTES:
+            floors["k7_" + mode] = stream_floor_ms(k7_kw["num_iters"]
+                                                   * q_bytes)
+    times["k6"] = (cuda_ms(lambda: k6(*s_args, **s_kw), 1, warmup=False),
+                   cuda_ms(lambda: k6_plain(*s_args, **s_kw), 1,
+                           warmup=False))
+    k6_flops, k6_stream = solve_work(
+        N_DS, M_DS, out_k6[2], ds_cfg.check_every, ds_cfg.accel_every,
+        4.0 * N_DS ** 2, 4.0 * (N_DS ** 2 + 2 * N_DS * M_DS + 2 * M_DS ** 2),
+        12.0 * N_DS ** 2)
+    bounds["k6"] = bound(stored_bytes(*s_args), sum(
+        t.numel() * t.element_size() for t in out_k6), k6_flops, F32_FLOPS)
+    floors["k6"] = stream_floor_ms(k6_stream)
+    emit("distinct_kernel_times", nvidia_smi=smi,
+         k7_num_iters=ds_cfg.check_every,
+         **{f"{k}_ms": v[0] for k, v in times.items()},
+         **{f"{k}_plain_ms": v[1] for k, v in times.items()})
+    # the floors of the designs that re-read matrices past the L2 each pass
+    # (K5 both materialized splits per update, the others one matrix), at
+    # this run's iterations; the kernel table's bound_ms is the function's
+    emit("stream_floors", **{f"{k}_ms": v for k, v in floors.items()})
+    del sp, sd, sd_free, k7_streams, Y7, s_args, out_k6
+    torch.cuda.empty_cache()
+
+    rows = [
+        ("k1", "K1 fused_full_solve", "full_solve.cu",
+         "solve_kernel.py:295", launches["k1"], errs["k1"], k1_ms,
+         k1_plain_ms),
+        ("k2", "K2 fused_pqp_iterations", "pqp_iterations.cu",
+         "kernels.py:104", launches["k2"], errs["k2"], k2_ms, k2_plain_ms),
+        *[("k3_" + mode, f"K3 fused_pqp_iterations_tiled ({mode})",
+           "pqp_iterations_tiled.cu", "tiled_kernel.py:177",
+           big_launches["k3_" + mode], errs["k3_" + mode],
+           *big_times["k3_" + mode]) for mode in ("float32", "bfloat16")],
+        ("k4", "K4 fused_full_solve_tiled", "full_solve_tiled.cu",
+         "tiled_solve_kernel.py:324", big_launches["k4"], errs["k4"],
+         *big_times["k4"]),
+        ("k5", "K5 fused_full_solve_distinct", "full_solve_distinct.cu",
+         "distinct_kernel.py:200", launches["k5"], errs["k5"], *times["k5"]),
+        ("k6", "K6 fused_full_solve_distinct_tiled",
+         "full_solve_distinct_tiled.cu", "distinct_tiled_kernel.py:253",
+         launches["k6"], errs["k6"], *times["k6"]),
+        ("k7_bfloat16", "K7 fused_pqp_iterations_distinct_tiled (bfloat16)",
+         "pqp_iterations_distinct_tiled.cu", "distinct_tiled_kernel.py:480",
+         launches["k7_bfloat16"], errs["k7_bfloat16"], *times["k7_bfloat16"]),
+    ]
+    table = [{"name": name, "route": "cuda",
+              "source": "pqp_for_mpc_tpu_torch/csrc/" + src,
+              "replaces": "pqp_for_mpc_tpu/ops/" + tpu, "launches": n,
+              "max_abs_err": max(err), "ms": ms, "plain_ms": plain_ms,
+              **bounds[key]}
+             for key, name, src, tpu, n, err, ms, plain_ms in rows]
+    # K7's float32 mode (same source, same wrapper) is not on the path:
+    # solve_mixed's float32 phase on 3-D Qd is the plain solve, as in the
+    # JAX package.  Its numbers from this run sit beside the bf16 row.
+    table[-1]["float32_mode"] = {
+        "launches": launches["k7_float32"],
+        "max_abs_err": errs["k7_float32"][0], "ms": times["k7_float32"][0],
+        "plain_ms": times["k7_float32"][1], **bounds["k7_float32"]}
+    print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

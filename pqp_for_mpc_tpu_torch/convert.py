@@ -3,9 +3,12 @@
 Each container is moved as a dict of NumPy arrays keyed by its field
 names, i.e. what ``{f: np.asarray(getattr(obj, f))}`` gives for the JAX
 container.  :func:`primal_from_numpy`, :func:`dual_from_numpy` and
-:func:`condensed_from_numpy` build the torch containers on ``device``;
+:func:`condensed_from_numpy` build the torch containers on ``device``
+(default CUDA; without a card that raises — pass ``device="cpu"``);
 :func:`to_numpy` goes the other way.  ``None`` fields stay ``None``; every
-array becomes float32, the working type of both packages.
+array becomes float32, the working type of both packages.  Arrays keep
+their shapes, so a distinct-geometry batch (``Qd (B, N, N)``, ``Gp
+(B, N, M)``) carries across as it is.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from pqp_for_mpc_tpu_torch.problem import CondensedMPCData, DualQP, PrimalQP
+from pqp_for_mpc_tpu_torch.problem import (CondensedMPCData, DualQP,
+                                           PrimalQP, resolve_device)
 
 
 def _tensor(v, device):
@@ -29,6 +33,7 @@ def _build(cls, arrays: dict, device):
     unknown = set(arrays) - set(names)
     if unknown:
         raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    device = resolve_device(device)
     return cls(**{n: _tensor(arrays.get(n), device) for n in names})
 
 

@@ -1,0 +1,200 @@
+// Helpers shared by the distinct-geometry kernels (full_solve_distinct.cu,
+// full_solve_distinct_tiled.cu, pqp_iterations_distinct_tiled.cu).
+//
+// Layout: every matrix is row-major with a leading instance axis; every
+// per-instance vector is instance-major, element (b, i) at v[b * len + i]
+// (the wrappers transpose the batch-last panels).  The matrices the kernels
+// multiply by are symmetric (Qd, its splits and Qd_hat; Qp and Qp^-1), so
+// row i is also column i: one warp reads row i contiguously for output i.
+// Only Gp is not symmetric; its transposed product sums over columns.
+//
+// Every sum runs in a fixed order — lanes over ascending entries, a warp
+// butterfly, then warps (and cluster ranks) in index order — so a second
+// launch repeats every bit.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "pqp_common.cuh"
+
+namespace pqp {
+namespace dist {
+
+// Sum over a warp by an xor butterfly: every lane ends with the same value.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The float32 value of a bfloat16 given by its bits (exact).
+__device__ __forceinline__ float bf16_bits(unsigned int bits) {
+  return __uint_as_float(bits << 16);
+}
+
+// dot(row[0:n], x[0:n]) for one warp: lane l takes the entries (or the
+// float4 groups, when vec) l, l + 32, ... in ascending order, then the
+// butterfly.  Every lane returns the sum.  x may be shared or global.
+__device__ __forceinline__ float warp_row_dot(const float* __restrict__ row,
+                                              const float* __restrict__ x,
+                                              int n, bool vec) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  if (vec) {
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+#pragma unroll 4
+    for (int q = lane; q < (n >> 2); q += 32) {
+      const float4 a = r4[q], v = x4[q];
+      acc = fmaf(a.x, v.x, acc);
+      acc = fmaf(a.y, v.y, acc);
+      acc = fmaf(a.z, v.z, acc);
+      acc = fmaf(a.w, v.w, acc);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = lane; j < n; j += 32) acc = fmaf(row[j], x[j], acc);
+  }
+  return warp_sum(acc);
+}
+
+// The two dots of rows a and b with x in one pass (the update's num and den
+// rows of the materialized splits).
+__device__ __forceinline__ void warp_row_dot2(const float* __restrict__ a,
+                                              const float* __restrict__ b,
+                                              const float* __restrict__ x,
+                                              int n, bool vec, float& sa,
+                                              float& sb) {
+  const int lane = threadIdx.x & 31;
+  float acc_a = 0.f, acc_b = 0.f;
+  if (vec) {
+    const float4* a4 = reinterpret_cast<const float4*>(a);
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+#pragma unroll 4
+    for (int q = lane; q < (n >> 2); q += 32) {
+      const float4 ra = a4[q], rb = b4[q], v = x4[q];
+      acc_a = fmaf(ra.x, v.x, acc_a);
+      acc_a = fmaf(ra.y, v.y, acc_a);
+      acc_a = fmaf(ra.z, v.z, acc_a);
+      acc_a = fmaf(ra.w, v.w, acc_a);
+      acc_b = fmaf(rb.x, v.x, acc_b);
+      acc_b = fmaf(rb.y, v.y, acc_b);
+      acc_b = fmaf(rb.z, v.z, acc_b);
+      acc_b = fmaf(rb.w, v.w, acc_b);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = lane; j < n; j += 32) {
+      acc_a = fmaf(a[j], x[j], acc_a);
+      acc_b = fmaf(b[j], x[j], acc_b);
+    }
+  }
+  sa = warp_sum(acc_a);
+  sb = warp_sum(acc_b);
+}
+
+// Both relu parts of one streamed entry: neg += max(-q, 0) x,
+// pos += max(q, 0) x (NaN kept, as the plain version's clamps).
+__device__ __forceinline__ void relu_fma(float q, float x, float& neg,
+                                         float& pos) {
+  neg = fmaf(relu_nan(-q), x, neg);
+  pos = fmaf(relu_nan(q), x, pos);
+}
+
+// The relu-split dots of one float32 streamed row with x, for one warp.
+__device__ __forceinline__ void warp_row_relu_dots(
+    const float* __restrict__ row, const float* __restrict__ x, int n,
+    bool vec, float& neg, float& pos) {
+  const int lane = threadIdx.x & 31;
+  float an = 0.f, ap = 0.f;
+  if (vec) {
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+#pragma unroll 4
+    for (int q = lane; q < (n >> 2); q += 32) {
+      const float4 a = r4[q], v = x4[q];
+      relu_fma(a.x, v.x, an, ap);
+      relu_fma(a.y, v.y, an, ap);
+      relu_fma(a.z, v.z, an, ap);
+      relu_fma(a.w, v.w, an, ap);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = lane; j < n; j += 32) relu_fma(row[j], x[j], an, ap);
+  }
+  neg = warp_sum(an);
+  pos = warp_sum(ap);
+}
+
+// The same for a bfloat16 streamed row (given as its bits): each entry is
+// exact in float32, and so is its product with a bf16-rounded x.
+__device__ __forceinline__ void warp_row_relu_dots(
+    const unsigned short* __restrict__ row, const float* __restrict__ x,
+    int n, bool vec, float& neg, float& pos) {
+  const int lane = threadIdx.x & 31;
+  float an = 0.f, ap = 0.f;
+  if (vec) {
+    const uint4* r8 = reinterpret_cast<const uint4*>(row);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+#pragma unroll 2
+    for (int q = lane; q < (n >> 3); q += 32) {
+      const uint4 w = r8[q];
+      const float4 v0 = x4[2 * q], v1 = x4[2 * q + 1];
+      relu_fma(bf16_bits(w.x & 0xffffu), v0.x, an, ap);
+      relu_fma(bf16_bits(w.x >> 16), v0.y, an, ap);
+      relu_fma(bf16_bits(w.y & 0xffffu), v0.z, an, ap);
+      relu_fma(bf16_bits(w.y >> 16), v0.w, an, ap);
+      relu_fma(bf16_bits(w.z & 0xffffu), v1.x, an, ap);
+      relu_fma(bf16_bits(w.z >> 16), v1.y, an, ap);
+      relu_fma(bf16_bits(w.w & 0xffffu), v1.z, an, ap);
+      relu_fma(bf16_bits(w.w >> 16), v1.w, an, ap);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = lane; j < n; j += 32)
+      relu_fma(bf16_bits(row[j]), x[j], an, ap);
+  }
+  neg = warp_sum(an);
+  pos = warp_sum(ap);
+}
+
+// Totals of K per-thread values over the block in a fixed order: warp
+// butterflies, then the warps in index order, summed by every thread alike.
+// red holds K * 32 floats.
+template <int K>
+__device__ __forceinline__ void block_sums(float (&v)[K], float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
+  __syncthreads();  // the previous use of red is over
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[k * 32 + warp] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float t = 0.f;
+    for (int w = 0; w < warps; ++w) t += red[k * 32 + w];
+    v[k] = t;
+  }
+}
+
+// out(r) = A[r, :] . x over rows [0, rows) of a row-major (rows, cols)
+// matrix, one warp per row; f(r, s) runs on lane 0.
+template <class F>
+__device__ __forceinline__ void rows_times(const float* A, int rows, int cols,
+                                           const float* x, bool vec, F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  for (int r = warp; r < rows; r += warps) {
+    const float s = warp_row_dot(A + (long long)r * cols, x, cols, vec);
+    if (lane == 0) f(r, s);
+  }
+}
+
+}  // namespace dist
+}  // namespace pqp

@@ -1,5 +1,6 @@
 // Helpers shared by the kernels (pqp_iterations.cu, full_solve.cu and,
-// through tile_gemm.cuh, pqp_iterations_tiled.cu and full_solve_tiled.cu).
+// through tile_gemm.cuh and distinct_common.cuh, the streamed and the
+// distinct-geometry kernels).
 //
 // Layout conventions, as the Python wrappers pass them:
 //  * matrices are row-major float32; in shared memory each row is padded to
@@ -13,6 +14,7 @@
 //    lane is passed as a column with lane flag 0.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace pqp {
@@ -28,6 +30,12 @@ enum LaneState : int {
 };
 
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+// Round to bf16 (nearest even, as torch's .bfloat16()) and back: the operand
+// the TPU's bf16 matvec sees.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // One panel as seen by one lane: element i is p[i * row + col].
 struct LanePanel {

@@ -44,12 +44,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Round to bf16 (nearest even) and back: the operand the TPU's bf16 matvec
-// sees.
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // A(r, k) = p[r * ld + k]: a row-major matrix.
 template <typename T>
 struct RowMajor {

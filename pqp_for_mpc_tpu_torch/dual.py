@@ -76,6 +76,43 @@ def dualize_forcing(geom: dict, Fp: torch.Tensor, Mp: torch.Tensor,
                   Fdp=torch.clamp(Fd, min=0.0), Fdn=torch.clamp(-Fd, min=0.0))
 
 
+def dualize_distinct(primal: PrimalQP, theta_floor: float = 5.0,
+                     precision: str = "highest",
+                     materialize_splits: bool = True) -> DualQP:
+    """:func:`dualize` for a batch of fully distinct instances, one random
+    geometry each (the reference generator's workload,
+    testing/test_generator.c:997-998).
+
+    Matrices carry a LEADING batch axis (``Qp (B, M, M)``, ``Gp
+    (B, N, M)``), vectors a TRAILING one (``Fp (M, B)`` or shared ``(M,)``,
+    ``Kp (N, B)`` or shared ``(N,)``).  The result has ``Qd (B, N, N)``,
+    ``theta (B, N)``, ``Fd (N, B)``, ``Md (B,)`` and, unless
+    ``materialize_splits=False``, the splits ``Qd^{+/-} + theta``
+    ``(B, N, N)``.
+    """
+    B = primal.Qp_inv.shape[0]
+    N = primal.Gp.shape[1]
+    M = primal.Gp.shape[2]
+    Fp2 = primal.Fp if primal.Fp.dim() == 2 else \
+        primal.Fp[:, None].expand(M, B)
+    Kp2 = primal.Kp if primal.Kp.dim() == 2 else primal.Kp[:, None]
+    GQi = torch.bmm(primal.Gp, primal.Qp_inv)                  # (B, N, M)
+    Qd = torch.bmm(GQi, primal.Gp.transpose(1, 2))             # (B, N, N)
+    theta = torch.clamp(torch.clamp(-Qd, min=0.0).sum(dim=2),
+                        min=theta_floor)                       # (B, N)
+    Fd = torch.einsum("bnm,mb->nb", GQi, Fp2) + Kp2
+    QiF = torch.einsum("bmk,kb->mb", primal.Qp_inv, Fp2)
+    Md = (Fp2 * QiF).sum(dim=0) - primal.Mp
+    Qdp_theta = Qdn_theta = None
+    if materialize_splits:
+        eye = torch.eye(N, dtype=Qd.dtype, device=Qd.device)
+        Qdp_theta = torch.clamp(Qd, min=0.0) + theta[:, :, None] * eye
+        Qdn_theta = torch.clamp(-Qd, min=0.0) + theta[:, :, None] * eye
+    return DualQP(Qd=Qd, Fd=Fd, Md=Md, theta=theta, Qdp_theta=Qdp_theta,
+                  Qdn_theta=Qdn_theta, Fdp=torch.clamp(Fd, min=0.0),
+                  Fdn=torch.clamp(-Fd, min=0.0))
+
+
 def primal_from_dual(primal: PrimalQP, Y: torch.Tensor,
                      precision: str = "highest") -> torch.Tensor:
     """Recover the primal iterate ``U = -Qp^-1 (Fp + Gp' Y)``

@@ -34,7 +34,7 @@ import torch
 from pqp_for_mpc_tpu_torch.config import SolverConfig
 from pqp_for_mpc_tpu_torch.dual import dual_geometry, dualize_forcing
 from pqp_for_mpc_tpu_torch.models.plants import LinearPlant
-from pqp_for_mpc_tpu_torch.problem import CondensedMPCData
+from pqp_for_mpc_tpu_torch.problem import CondensedMPCData, resolve_device
 from pqp_for_mpc_tpu_torch.routing import solve_auto
 
 
@@ -276,8 +276,9 @@ def condense(spec: MPCSpec, device=None) -> CondensedMPCData:
     the finished blocks are cast to float32 tensors on ``device``: build
     accuracy bounds solver accuracy (kappa(Qp) reaches ~1e11 for stiff
     plants at modest horizons), so the float32 cast is the only error.
+    ``device`` defaults to CUDA (``problem.resolve_device``).
     """
-    return _condense(spec, device)
+    return _condense(spec, resolve_device(device))
 
 
 def _condense(spec: MPCSpec, device) -> CondensedMPCData:
@@ -478,7 +479,8 @@ class MPCController:
     Warm starting carries the dual iterate Y* between consecutive solves:
     consecutive QPs differ only in (x, u_prev), so the previous multipliers
     are a near-optimal initialization.  ``device`` is where the condensed
-    blocks and every solve live (default: CUDA when available).
+    blocks and every solve live (default: CUDA; without a card that
+    raises — pass ``device="cpu"``).
     """
 
     def __init__(self, spec: MPCSpec, cfg: Optional[SolverConfig] = None,
@@ -511,9 +513,7 @@ class MPCController:
             # the reference's Y0=1000 (PQP_CPU.c:710) is catastrophic on
             # a typical MPC QP
             cfg = MPC_CONFIG
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.spec = spec
         self.warm_start = warm_start
         # an explicitly-passed cfg is honored verbatim; cold_start_y0

@@ -39,6 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 #: argtypes of every C entry point (pointers and the stream as c_void_p,
 #: so a 64-bit address is never cut to 32 bits)
@@ -63,6 +64,22 @@ SIGNATURES = {
     # n, m, B, max_iters, check_every, accel, eaj, erj, strict, den_eps,
     # gap_comp, stream
     "full_solve_tiled_f32": [_P] * 25 + [_I] * 6 + [_F, _F, _I, _F, _I, _P],
+    # qdn, qdp, qd, gp, gp_stride, qp, qpi, qp_stride,
+    # fp, fd, fdp, fdn, kps, mp, md, y0, y_out, u_out, iters_out, state_out,
+    # n, m, B, max_iters, check_every, accel_every, eaj, erj, strict,
+    # den_eps, stream
+    "full_solve_distinct_f32": [_P] * 4 + [_L] + [_P] * 2 + [_L]
+    + [_P] * 12 + [_I] * 6 + [_F, _F, _I, _F, _P],
+    # qh, theta, gp, gp_stride, qp, qpi, qp_stride,
+    # fp, fd, fdp, fdn, kps, mp, md, y0, y_out, u_out, iters_out, state_out,
+    # n, m, B, max_iters, check_every, accel, eaj, erj, strict, den_eps,
+    # gap_comp, stream
+    "full_solve_distinct_tiled_f32": [_P] * 3 + [_L] + [_P] * 2 + [_L]
+    + [_P] * 12 + [_I] * 6 + [_F, _F, _I, _F, _I, _P],
+    # q, q_bf16, theta, fdn, fdp, y, y_out, y_tmp, n, B, num_iters,
+    # den_eps, stream
+    "pqp_iterations_distinct_tiled": [_P, _I] + [_P] * 6 + [_I] * 3
+    + [_F, _P],
 }
 
 

@@ -1,0 +1,259 @@
+"""K5: the whole PQP solve for a batch of DISTINCT instances in one launch.
+
+The counterpart of ``pqp_for_mpc_tpu/ops/distinct_kernel.py``: one geometry
+per instance (``Qd``, its splits ``(B, N, N)``, ``Gp (B, N, M)``, ``Qp``/
+``Qp^-1 (B, M, M)``, as :func:`~pqp_for_mpc_tpu_torch.dual.dualize_distinct`
+builds them), and for each instance the whole solve — multiplicative
+updates, the four-part check with the recovered U and the EXPLICIT gap
+``Jp + Jd``, the safeguarded acceleration in ``accel_every`` chunks, the
+stall freeze and a per-instance early exit.  The kernel is
+``csrc/full_solve_distinct.cu`` (one thread block per instance; see the note
+at the top of the source); :func:`fused_full_solve_distinct_reference` is
+its plain PyTorch version, the TPU kernel's body vectorised over the
+instances.  Lane codes are K1's (0 max_iters, 1 certified, 2 stalled).
+
+:func:`distinct_fits_resident` is the port's routing line for this kernel;
+the kernel itself takes any N whose per-instance vectors fit one block's
+shared memory (:func:`smem_bytes`; N <= 5,256 at M = N/4) and raises past
+it.  Dispatch: CPU tensors run the plain version; CUDA tensors launch the
+kernel, and a failed build or launch raises.
+``fused_full_solve_distinct.launches`` counts the launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from pqp_for_mpc_tpu_torch.config import SolverConfig
+from pqp_for_mpc_tpu_torch.ops import build
+from pqp_for_mpc_tpu_torch.ops.kernels import (SMEM_LIMIT_BYTES, _matrix,
+                                               _on_cuda, _round4)
+from pqp_for_mpc_tpu_torch.ops.solve_kernel import (LANE_CERTIFIED,
+                                                    LANE_STALLED,
+                                                    fused_full_solve_reference)
+
+#: one instance's matrices (three Qd splits, Gp twice, Qp twice) the router
+#: lets K5 take.  The TPU kernel's per-grid-step VMEM operand budget
+#: (``pqp_for_mpc_tpu/ops/distinct_kernel.py:52-69``), carried over as a
+#: provisional line.  Counted without the TPU's (8, 128) padding it crosses
+#: near N = 1,200 at M = N/4 (the TPU's padded count, near 1,150).  An H100
+#: cell is to re-derive it (ROADMAP queue 1, item 5).
+DISTINCT_OPERAND_BUDGET = 20 * 1024 * 1024
+
+def distinct_fits_resident(n: int, m: int) -> bool:
+    """Does the router send a distinct batch of ``N=n``, ``M=m`` to K5?
+    True when one instance's matrices (``3 n^2 + 2 n m + 2 m^2`` floats)
+    fit :data:`DISTINCT_OPERAND_BUDGET`."""
+    return (3 * n * n + 2 * n * m + 2 * m * m) * 4 <= DISTINCT_OPERAND_BUDGET
+
+
+def smem_bytes(n: int, m: int) -> int:
+    """Shared memory of one K5 block: ten N-vectors (three iterates, Fd,
+    Fd^-, Fd^+, Kp slack, gradient, direction, row values), four
+    M-vectors (Fp, Gp'Y + Fp, U, Qp U) and the reduction slots."""
+    return (10 * _round4(n) + 4 * _round4(m) + 8 * 32) * 4
+
+
+def fits_kernel(n: int, m: int) -> bool:
+    """Does K5 take an ``N=n``, ``M=m`` problem at all?"""
+    return n >= 1 and m >= 1 and smem_bytes(n, m) <= SMEM_LIMIT_BYTES
+
+
+def fused_full_solve_distinct_reference(Qdn_theta, Qdp_theta, Qd, Gp, Qp,
+                                        Qp_inv, Fp, Fd, Fdp, Fdn, Kp_slack,
+                                        Mp, Md, Y0, *, max_iters: int,
+                                        check_every: int,
+                                        accel_every: int = 0,
+                                        eaj: float = 1e-6, erj: float = 1e-6,
+                                        strict: bool = True,
+                                        den_eps: float = 1e-30,
+                                        precision: str = "highest"):
+    """The plain PyTorch version of the kernel: the TPU kernel's body
+    (``pqp_for_mpc_tpu/ops/distinct_kernel.py:_kernel``) over all instances
+    — K1's body with per-instance products and the explicit gap."""
+    return fused_full_solve_reference(
+        Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv, Fp, Fd, Fdp, Fdn,
+        Kp_slack, Mp, Md, Y0, max_iters=max_iters, check_every=check_every,
+        accel_every=accel_every, eaj=eaj, erj=erj, strict=strict,
+        den_eps=den_eps, precision=precision, gap_comp=False)
+
+
+def instance_rows(t: torch.Tensor, rows: int, B: int, name: str,
+                  device) -> torch.Tensor:
+    """A batch-last panel ``(rows, B)`` (or shared ``(rows,)``/
+    ``(rows, 1)``, or per-instance scalars for ``rows == 1``) as the
+    ``(B, rows)`` instance-major float32 copy the distinct kernels read,
+    16-byte aligned."""
+    t = _matrix(t, tuple(t.shape), name, device)
+    if t.numel() not in (rows, rows * B):
+        raise ValueError(f"{name}: expected {rows} or {rows * B} entries, "
+                         f"got {tuple(t.shape)}")
+    return t.reshape(rows, -1).expand(rows, B).T.contiguous()
+
+
+def instance_matrix(t: torch.Tensor, B: int, r: int, c: int, name: str,
+                    device):
+    """A per-instance ``(B, r, c)`` matrix, or one ``(r, c)`` shared by every
+    instance: ``(contiguous 16-byte aligned tensor, instance stride)``."""
+    if t.dim() == 2:
+        out, stride = _matrix(t, (r, c), name, device), 0
+    else:
+        out, stride = _matrix(t, (B, r, c), name, device), r * c
+    return aligned(out), stride
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied when its data does not start on 16 bytes (the kernels
+    read rows as 16-byte vectors)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def fused_full_solve_distinct(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
+                              Fp, Fd, Fdp, Fdn, Kp_slack, Mp, Md, Y0, *,
+                              max_iters: int, check_every: int,
+                              accel_every: int = 0, eaj: float = 1e-6,
+                              erj: float = 1e-6, strict: bool = True,
+                              den_eps: float = 1e-30,
+                              precision: str = "highest"):
+    """One-launch whole solve for B distinct instances.
+
+    Matrices ``(B, N, N)`` (the splits and ``Qd``), ``Gp (B, N, M)`` and
+    ``Qp``/``Qp_inv (B, M, M)`` (the primal ones may also be shared, 2-D);
+    panels ``(M, B)``/``(N, B)`` per instance or shared; ``Mp``/``Md (B,)``;
+    ``Kp_slack`` the pre-slackened threshold.  Returns ``(Y (N, B),
+    U (M, B), iters (B,) int32, lane_state (B,) int32)``."""
+    kw = dict(max_iters=max_iters, check_every=check_every,
+              accel_every=accel_every, eaj=eaj, erj=erj, strict=strict,
+              den_eps=den_eps, precision=precision)
+    if not _on_cuda(Y0, "Y0"):
+        return fused_full_solve_distinct_reference(
+            Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv, Fp, Fd, Fdp, Fdn,
+            Kp_slack, Mp, Md, Y0, **kw)
+    if Y0.dim() != 2 or Qd.dim() != 3:
+        raise ValueError("fused_full_solve_distinct: expected Y0 (N, B) and "
+                         "Qd (B, N, N)")
+    N, B = Y0.shape
+    M = Gp.shape[-1]
+    if not fits_kernel(N, M):
+        raise ValueError(
+            f"fused_full_solve_distinct: N={N}, M={M} need "
+            f"{smem_bytes(N, M)} bytes of shared memory per instance, more "
+            f"than a block's {SMEM_LIMIT_BYTES}; use "
+            "solve_fused_distinct_tiled or solve_batched")
+    if check_every < 1 or accel_every < 0:
+        raise ValueError("check_every must be >= 1 and accel_every >= 0")
+    dev = Y0.device
+    qdn, qdp, qd = (aligned(_matrix(t, (B, N, N), name, dev))
+                    for t, name in ((Qdn_theta, "Qdn_theta"),
+                                    (Qdp_theta, "Qdp_theta"), (Qd, "Qd")))
+    gp, gp_stride = instance_matrix(Gp, B, N, M, "Gp", dev)
+    qp, qp_stride = instance_matrix(Qp, B, M, M, "Qp", dev)
+    qpi, qpi_stride = instance_matrix(Qp_inv, B, M, M, "Qp_inv", dev)
+    if qpi_stride != qp_stride:
+        raise ValueError("Qp and Qp_inv must both be shared or both per "
+                         "instance")
+    panels = [instance_rows(t, r, B, name, dev) for t, r, name in (
+        (Fp, M, "Fp"), (Fd, N, "Fd"), (Fdp, N, "Fdp"), (Fdn, N, "Fdn"),
+        (Kp_slack, N, "Kp_slack"), (Mp, 1, "Mp"), (Md, 1, "Md"),
+        (Y0, N, "Y0"))]
+    f32 = dict(dtype=torch.float32, device=dev)
+    y = torch.empty((B, N), **f32)
+    u = torch.empty((B, M), **f32)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    state = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return y.T, u.T, iters, state
+    lib = build.load_library()
+    code = lib.full_solve_distinct_f32(
+        qdn.data_ptr(), qdp.data_ptr(), qd.data_ptr(), gp.data_ptr(),
+        gp_stride, qp.data_ptr(), qpi.data_ptr(), qp_stride,
+        *[t.data_ptr() for t in panels], y.data_ptr(), u.data_ptr(),
+        iters.data_ptr(), state.data_ptr(), N, M, B, int(max_iters),
+        int(check_every), int(accel_every), float(eaj), float(erj),
+        int(bool(strict)), float(den_eps), build.stream_handle(dev))
+    build.check(code, "fused_full_solve_distinct")
+    fused_full_solve_distinct.launches += 1
+    return y.T, u.T, iters, state
+
+
+fused_full_solve_distinct.launches = 0
+
+
+def distinct_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
+                    cfg: Optional[SolverConfig] = None):
+    """The arguments :func:`solve_fused_distinct` hands the kernel:
+    ``(args, kwargs)`` for :func:`fused_full_solve_distinct` or,
+    identically, for :func:`fused_full_solve_distinct_reference`.  Raises
+    on 2-D ``Qd``, on a split-free dual and on a warm start whose batch is
+    neither 1 nor B."""
+    from pqp_for_mpc_tpu_torch.solver import _as2d
+
+    cfg = cfg or SolverConfig()
+    if dual.Qd.dim() != 3:
+        raise ValueError("solve_fused_distinct needs Qd (B, N, N); use "
+                         "solve_fused for shared geometry")
+    if dual.Qdn_theta is None:
+        raise ValueError(
+            "solve_fused_distinct reads the MATERIALIZED Qd splits — build "
+            "the dual with dualize_distinct(materialize_splits=True), or use "
+            "solve_fused_distinct_tiled (it never needs them); the JAX "
+            "package fails here with an opaque TypeError")
+    B, N, _ = dual.Qd.shape
+    M = primal.Gp.shape[-1]
+    if Y0 is None:
+        Y0 = torch.full((N, B), cfg.y0, dtype=torch.float32,
+                        device=dual.Qd.device)
+    else:
+        Y0 = _as2d(Y0)
+        if Y0.shape[1] == 1 and B > 1:
+            Y0 = Y0.expand(N, B)
+        elif Y0.shape[1] != B:
+            raise ValueError(
+                f"warm start batch {Y0.shape[1]} != instance batch {B}")
+    kp_slack = primal.Kp + torch.clamp(cfg.erc * primal.Kp, min=cfg.eac)
+    args = (dual.Qdn_theta, dual.Qdp_theta, dual.Qd, primal.Gp, primal.Qp,
+            primal.Qp_inv, _as2d(primal.Fp).expand(M, B),
+            _as2d(dual.Fd).expand(N, B), _as2d(dual.Fdp).expand(N, B),
+            _as2d(dual.Fdn).expand(N, B), kp_slack,
+            primal.Mp.reshape(-1).expand(B), dual.Md.reshape(-1).expand(B),
+            Y0)
+    kwargs = dict(max_iters=cfg.max_iters, check_every=cfg.check_every,
+                  accel_every=cfg.accel_every, eaj=cfg.eaj, erj=cfg.erj,
+                  strict=cfg.strict_weak_duality, den_eps=cfg.den_eps,
+                  precision=cfg.precision)
+    return args, kwargs
+
+
+def distinct_result(primal, dual, cfg: Optional[SolverConfig], Y, U, iters,
+                    lane_state):
+    """A :class:`~pqp_for_mpc_tpu_torch.solver.SolveResult` from K5's
+    outputs, with the JAX wrapper's rescue
+    (``pqp_for_mpc_tpu/ops/distinct_kernel.py:351-360``): feasibility and
+    costs recomputed in PyTorch, and a stall-frozen instance counts as
+    converged when its exit state passes the verdict with the explicit
+    gap, the kernel's own certificate."""
+    from pqp_for_mpc_tpu_torch.solver import (SolveResult, costs,
+                                              feasibility, termination_fail)
+
+    cfg = cfg or SolverConfig()
+    feas = feasibility(primal, U, cfg.erc, cfg.eac)
+    Jp, Jd = costs(primal, dual, Y, U)
+    div = ~torch.isfinite(Y).all(dim=0)
+    cert = lane_state == LANE_CERTIFIED
+    stalled = lane_state == LANE_STALLED
+    fail = termination_fail(feas, Jp, Jd, cfg)
+    conv = (cert | (stalled & ~fail)) & ~div
+    return SolveResult(U=U, Y=Y, iters=iters, converged=conv,
+                       feasible=feas, Jp=Jp, Jd=Jd, diverged=div)
+
+
+def solve_fused_distinct(primal, dual, Y0: Optional[torch.Tensor] = None,
+                         cfg: Optional[SolverConfig] = None):
+    """Drop-in analog of :func:`pqp_for_mpc_tpu_torch.solver.solve_batched`
+    for distinct-geometry batches in one launch; see
+    :func:`distinct_inputs` and :func:`distinct_result`."""
+    args, kwargs = distinct_inputs(primal, dual, Y0, cfg)
+    return distinct_result(primal, dual, cfg,
+                           *fused_full_solve_distinct(*args, **kwargs))

@@ -62,9 +62,14 @@ def fused_full_solve_reference(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
     """The plain PyTorch version of the kernel: the TPU kernel's body
     (``pqp_for_mpc_tpu/ops/solve_kernel.py:_kernel``) over the whole batch,
     looping until no lane is active or ``h > max_iters``.  Panels may be
-    per lane or shared, as for :func:`fused_full_solve`."""
+    per lane or shared, as for :func:`fused_full_solve`.  The matrices may
+    also be per instance (``(B, N, N)``, ...): this body is then the plain
+    version of the distinct-geometry kernel K5 too
+    (:mod:`pqp_for_mpc_tpu_torch.ops.distinct_kernel`)."""
+    from pqp_for_mpc_tpu_torch.solver import _mv, _mvT
+
     N, B = Y0.shape
-    M = Gp.shape[1]
+    M = Gp.shape[-1]
     lanes = lambda t, r: t.reshape(r, -1).expand(r, B)
     fp, fd = lanes(Fp, M), lanes(Fd, N)
     fdp, fdn, kps = lanes(Fdp, N), lanes(Fdn, N), lanes(Kp_slack, N)
@@ -72,33 +77,33 @@ def fused_full_solve_reference(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
     md = Md.reshape(-1).expand(B)
 
     def one_update(y, done):
-        num = Qdn_theta @ y + fdn
-        den = Qdp_theta @ y + fdp
+        num = _mv(Qdn_theta, y) + fdn
+        den = _mv(Qdp_theta, y) + fdp
         if den_eps:
             den = torch.clamp(den, min=den_eps)
         return torch.where(done, y, (num / den) * y)
 
     def accel(y, done):
-        grad = Qd @ y + fd
+        grad = _mv(Qd, y) + fd
         p = torch.where((y > 0.0) | (grad < 0.0), -grad,
                         torch.zeros_like(grad))
-        pQp = (p * (Qd @ p)).sum(dim=0)
+        pQp = (p * _mv(Qd, p)).sum(dim=0)
         alpha = torch.where(pQp > 0,
                             (p * p).sum(dim=0) / torch.clamp(pQp, min=1e-30),
                             torch.zeros_like(pQp))
         yn = torch.clamp(y + alpha * p, min=0.0)
         fY = 0.5 * (y * (grad + fd)).sum(dim=0)
-        fYn = 0.5 * (yn * (Qd @ yn)).sum(dim=0) + (fd * yn).sum(dim=0)
+        fYn = 0.5 * (yn * _mv(Qd, yn)).sum(dim=0) + (fd * yn).sum(dim=0)
         keep = (fYn <= fY) & ~done
         return torch.where(keep, yn, y)
 
     def check(y):
-        u = -(Qp_inv @ (Gp.T @ y + fp))
-        feas = ~(Gp @ u > kps).any(dim=0)
-        s1 = (y * (Qd @ y)).sum(dim=0)
+        u = -_mv(Qp_inv, _mvT(Gp, y) + fp)
+        feas = ~(_mv(Gp, u) > kps).any(dim=0)
+        s1 = (y * _mv(Qd, y)).sum(dim=0)
         s2 = (fd * y).sum(dim=0)
         jd = 0.5 * s1 + s2 + 0.5 * md
-        jp = 0.5 * (u * (Qp @ u)).sum(dim=0) + (fp * u).sum(dim=0) + 0.5 * mp
+        jp = 0.5 * (u * _mv(Qp, u)).sum(dim=0) + (fp * u).sum(dim=0) + 0.5 * mp
         if gap_comp:
             gap = s1 + s2
             weak_fail = gap > 0.0

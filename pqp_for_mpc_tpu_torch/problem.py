@@ -14,7 +14,10 @@ arrays.
 Shapes keep the JAX package's batch-last layout: ``M`` primal variables,
 ``N`` constraints (the dual dimension), ``Y: (N, B)``, ``Fp: (M, B)``.
 Every tensor of one container lives on one device; functions take the
-device from their inputs.
+device from their inputs.  Entry points that build tensors from host data
+(``models.condense``, ``models.MPCController``, ``convert.*_from_numpy``)
+place them on the card unless the caller asks for the CPU
+(:func:`resolve_device`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,18 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds on: ``device``, or ``"cuda"`` when
+    it is ``None``.  A CUDA device without a card raises instead of
+    quietly running on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested (the default) but no CUDA "
+            "device is available; pass device='cpu' to run on the CPU")
+    return device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,11 +50,11 @@ class PrimalQP:
     primal cost (``computeCost``, PQP_CPU.c:648-666) consumes Qp itself.
     """
 
-    Qp: Optional[torch.Tensor]   # (M, M)
-    Qp_inv: torch.Tensor         # (M, M)
+    Qp: Optional[torch.Tensor]   # (M, M), or (B, M, M) distinct
+    Qp_inv: torch.Tensor         # like Qp
     Fp: torch.Tensor             # (M,) or (M, B)
     Mp: torch.Tensor             # () or (B,)
-    Gp: torch.Tensor             # (N, M)
+    Gp: torch.Tensor             # (N, M), or (B, N, M) distinct
     Kp: torch.Tensor             # (N,) or (N, B)
 
     def qp(self) -> torch.Tensor:
@@ -62,15 +77,17 @@ class DualQP:
     Built by :func:`pqp_for_mpc_tpu_torch.dual.dualize`; the fields are
     those of the JAX ``DualQP`` (see its docstring for the formulas).
     ``Qdp_theta``/``Qdn_theta`` are ``None`` for a split-free dual
-    (``dualize(materialize_splits=False)``).
+    (``dualize(materialize_splits=False)``).  A distinct-geometry batch
+    (:func:`~pqp_for_mpc_tpu_torch.dual.dualize_distinct`) carries its
+    matrices with a leading batch axis and its vectors with a trailing one.
     """
 
-    Qd: torch.Tensor                    # (N, N)
+    Qd: torch.Tensor                    # (N, N), or (B, N, N) distinct
     Fd: torch.Tensor                    # (N,) or (N, B)
     Md: torch.Tensor                    # () or (B,)
-    theta: torch.Tensor                 # (N,)
-    Qdp_theta: Optional[torch.Tensor]   # (N, N) or None
-    Qdn_theta: Optional[torch.Tensor]   # (N, N) or None
+    theta: torch.Tensor                 # (N,), or (B, N) distinct
+    Qdp_theta: Optional[torch.Tensor]   # like Qd, or None
+    Qdn_theta: Optional[torch.Tensor]   # like Qd, or None
     Fdp: torch.Tensor                   # like Fd
     Fdn: torch.Tensor                   # like Fd
 

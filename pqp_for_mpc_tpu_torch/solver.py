@@ -25,11 +25,13 @@ Convergence test (``terminate``, PQP_CPU.c:673-687), as the JAX package:
 3. absolute gap:  ``Jp + Jd <= eaj``;
 4. relative gap:  ``(Jp + Jd)/|Jd| <= erj``.
 
-:func:`solve_mixed` runs a bfloat16 bulk phase, then certifies in float32
-through :func:`solve_batched`.  Shared (2-D) geometry only: the distinct-
-geometry einsum path is a later slice of the port (ROADMAP queue 1, item 8).
-``precision`` arguments are accepted for the JAX signatures and ignored:
-products run in full float32.
+Distinct geometry: a ``(B, N, N)`` ``Qd`` (``dual.dualize_distinct``)
+holds one geometry per instance, and every product goes through
+:func:`_mv`/:func:`_mvT`, the per-instance (batched) products of the JAX
+package's einsum branch.  :func:`solve_mixed` runs a bfloat16 bulk phase,
+then certifies in float32 through :func:`solve_batched`, on either
+geometry.  ``precision`` arguments are accepted for the JAX signatures and
+ignored: products run in full float32.
 """
 
 from __future__ import annotations
@@ -80,11 +82,36 @@ def _as2d(v: torch.Tensor) -> torch.Tensor:
     return v if v.dim() == 2 else v[:, None]
 
 
-def _shared_only(dual: DualQP):
-    if dual.Qd.dim() != 2:
-        raise NotImplementedError(
-            "distinct (3-D) geometry is not ported yet (ROADMAP queue 1, "
-            "item 8)")
+def _mv(A: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Matrix-vector over the batch: ``A (N, N)`` or per-instance
+    ``(B, N, N)``, ``Y (N, B)`` -> ``(N, B)``."""
+    if A.dim() == 2:
+        return A @ Y
+    return torch.einsum("bij,jb->ib", A, Y)
+
+
+def _mvT(A: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Transposed matrix-vector over the batch: ``A (N, M)`` or
+    ``(B, N, M)``, ``Y (N, B)`` -> ``A' Y (M, B)``."""
+    if A.dim() == 2:
+        return A.T @ Y
+    return torch.einsum("bij,ib->jb", A, Y)
+
+
+def refuse_split_free_distinct(dual: DualQP) -> None:
+    """Raise on a split-free distinct dual, which the multiplicative
+    update cannot take: ``theta`` is per instance ``(B, N)``, and the JAX
+    package's ``pqp_update`` (``pqp_for_mpc_tpu/solver.py:119``) multiplies
+    ``theta.reshape(-1, 1)`` by ``Y (N, B)`` and fails with a shape
+    ``TypeError`` (ROADMAP queue 3).  The port refuses it by name."""
+    if dual.Qd.dim() == 3 and dual.Qdn_theta is None:
+        raise ValueError(
+            "a split-free distinct dual (dualize_distinct("
+            "materialize_splits=False)) cannot run the multiplicative "
+            "update of solve_batched: the JAX package fails on it with a "
+            "shape TypeError (its solver.py:119).  Build the dual with "
+            "materialize_splits=True, or use "
+            "ops.distinct_tiled_kernel.solve_fused_distinct_tiled")
 
 
 def pqp_update(dual: DualQP, Y: torch.Tensor, precision=None,
@@ -94,15 +121,17 @@ def pqp_update(dual: DualQP, Y: torch.Tensor, precision=None,
     (updateY2 + updY, PQP_CPU.c:603-618, 590-596).  Y: (N, B).
 
     A split-free dual builds the splits from ``Qd`` and applies theta as a
-    separate elementwise term on both sides, as the JAX package does.
+    separate elementwise term on both sides, as the JAX package does; a
+    split-free distinct dual raises (:func:`refuse_split_free_distinct`).
     """
+    refuse_split_free_distinct(dual)
     if dual.Qdn_theta is None:
         tY = dual.theta.reshape(-1, 1) * Y
         num = torch.clamp(-dual.Qd, min=0.0) @ Y + tY + _as2d(dual.Fdn)
         den = torch.clamp(dual.Qd, min=0.0) @ Y + tY + _as2d(dual.Fdp)
     else:
-        num = dual.Qdn_theta @ Y + _as2d(dual.Fdn)
-        den = dual.Qdp_theta @ Y + _as2d(dual.Fdp)
+        num = _mv(dual.Qdn_theta, Y) + _as2d(dual.Fdn)
+        den = _mv(dual.Qdp_theta, Y) + _as2d(dual.Fdp)
     if den_eps:
         den = torch.clamp(den, min=den_eps)        # NaN stays NaN
     return (num / den) * Y
@@ -116,15 +145,15 @@ def accel_step(dual: DualQP, Y: torch.Tensor, done: torch.Tensor,
     reference's acceleration branch, PQP_CPU.c:545-630; see the JAX
     ``accel_step``)."""
     Fd = _as2d(dual.Fd)
-    grad = dual.Qd @ Y + Fd                                     # (N, B)
+    grad = _mv(dual.Qd, Y) + Fd                                 # (N, B)
     p = torch.where((Y > 0.0) | (grad < 0.0), -grad, torch.zeros_like(grad))
-    pQp = (p * (dual.Qd @ p)).sum(dim=0)                        # (B,)
+    pQp = (p * _mv(dual.Qd, p)).sum(dim=0)                      # (B,)
     alpha = torch.where(pQp > 0,
                         (p * p).sum(dim=0) / torch.clamp(pQp, min=1e-30),
                         torch.zeros_like(pQp))
     Yn = torch.clamp(Y + alpha[None, :] * p, min=0.0)
     fY = 0.5 * (Y * (grad + Fd)).sum(dim=0)
-    fYn = 0.5 * (Yn * (dual.Qd @ Yn)).sum(dim=0) + (Fd * Yn).sum(dim=0)
+    fYn = 0.5 * (Yn * _mv(dual.Qd, Yn)).sum(dim=0) + (Fd * Yn).sum(dim=0)
     keep = (fYn <= fY) & ~done
     return torch.where(keep[None, :], Yn, Y)
 
@@ -133,10 +162,10 @@ def costs(primal: PrimalQP, dual: DualQP, Y: torch.Tensor, U: torch.Tensor,
           precision=None):
     """Batched primal/dual costs (computeCost, PQP_CPU.c:648-666):
     ``J = 1/2 Z'QZ + F'Z + M/2``.  Returns (Jp, Jd), each (B,)."""
-    QdY = dual.Qd @ Y
+    QdY = _mv(dual.Qd, Y)
     Jd = (0.5 * (Y * QdY).sum(dim=0)
           + (_as2d(dual.Fd) * Y).sum(dim=0) + 0.5 * dual.Md)
-    QpU = primal.Qp @ U
+    QpU = _mv(primal.Qp, U)
     Jp = (0.5 * (U * QpU).sum(dim=0)
           + (_as2d(primal.Fp) * U).sum(dim=0) + 0.5 * primal.Mp)
     return Jp, Jd
@@ -145,7 +174,7 @@ def costs(primal: PrimalQP, dual: DualQP, Y: torch.Tensor, U: torch.Tensor,
 def recover_U(primal: PrimalQP, Y: torch.Tensor,
               precision=None) -> torch.Tensor:
     """``U = -Qp^-1 (Fp + Gp' Y)`` (computeUfromY, PQP_CPU.c:352-360)."""
-    return -(primal.Qp_inv @ (primal.Gp.T @ Y + _as2d(primal.Fp)))
+    return -_mv(primal.Qp_inv, _mvT(primal.Gp, Y) + _as2d(primal.Fp))
 
 
 def feasibility(primal: PrimalQP, U: torch.Tensor, erc: float, eac: float,
@@ -154,7 +183,7 @@ def feasibility(primal: PrimalQP, U: torch.Tensor, erc: float, eac: float,
     ``Kp + max(erc*Kp, eac)`` (compare, PQP_CPU.c:334-343 — no |Kp|, as in
     the reference).  ``Kp`` may be ``(N,)`` or ``(N, B)``.  Returns (B,)."""
     slack = primal.Kp + torch.clamp(erc * primal.Kp, min=eac)
-    return (primal.Gp @ U <= _as2d(slack)).all(dim=0)
+    return (_mv(primal.Gp, U) <= _as2d(slack)).all(dim=0)
 
 
 def termination_fail(feas: torch.Tensor, Jp: torch.Tensor, Jd: torch.Tensor,
@@ -180,7 +209,7 @@ def complementarity_gap(dual: DualQP, Y: torch.Tensor,
                         precision=None) -> torch.Tensor:
     """Duality gap of the recovered primal via ``Y'(Qd Y + Fd)``
     (see ``SolverConfig.gap_from_complementarity``).  Returns (B,)."""
-    return (Y * (dual.Qd @ Y + _as2d(dual.Fd))).sum(dim=0)
+    return (Y * (_mv(dual.Qd, Y) + _as2d(dual.Fd))).sum(dim=0)
 
 
 def check_terminate(primal: PrimalQP, dual: DualQP, Y: torch.Tensor,
@@ -194,13 +223,13 @@ def check_terminate(primal: PrimalQP, dual: DualQP, Y: torch.Tensor,
     """
     U = recover_U(primal, Y)
     if cfg.feas_from_dual_gradient:
-        QdY = dual.Qd @ Y
+        QdY = _mv(dual.Qd, Y)
         g = QdY + _as2d(dual.Fd)                    # = Kp - Gp U exactly
         slack = torch.clamp(cfg.erc * primal.Kp, min=cfg.eac)
         feas = (g >= -_as2d(slack)).all(dim=0)
         Jd = (0.5 * (Y * QdY).sum(dim=0)
               + (_as2d(dual.Fd) * Y).sum(dim=0) + 0.5 * dual.Md)
-        Jp = (0.5 * (U * (primal.Qp @ U)).sum(dim=0)
+        Jp = (0.5 * (U * _mv(primal.Qp, U)).sum(dim=0)
               + (_as2d(primal.Fp) * U).sum(dim=0) + 0.5 * primal.Mp)
         gap = (Y * g).sum(dim=0) if cfg.gap_from_complementarity else None
     else:
@@ -242,6 +271,8 @@ def retry_cold_solve(solve_fn: Callable[[torch.Tensor], SolveResult],
 
 
 def _batch_of(dual: DualQP) -> int:
+    if dual.Qd.dim() == 3:
+        return dual.Qd.shape[0]
     return dual.Fd.shape[1] if dual.Fd.dim() == 2 else 1
 
 
@@ -263,16 +294,19 @@ def solve_batched(primal: PrimalQP, dual: DualQP,
                   Y0: Optional[torch.Tensor] = None,
                   cfg: SolverConfig = SolverConfig(),
                   retry_cold: bool = False) -> SolveResult:
-    """Solve a batch of PQP instances sharing constraint geometry.
+    """Solve a batch of PQP instances.
 
-    ``primal.Fp`` / ``dual.Fd`` may be ``(M,)``/``(N,)`` or
-    ``(M, B)``/``(N, B)``.  ``Y0`` warm-starts the solve (one column seeds
+    Shared geometry: ``primal.Fp`` / ``dual.Fd`` may be ``(M,)``/``(N,)`` or
+    ``(M, B)``/``(N, B)``.  Distinct geometry: ``dual.Qd (B, N, N)`` and
+    its splits, ``primal.Gp``/``Qp``/``Qp_inv`` per instance or shared
+    (:func:`~pqp_for_mpc_tpu_torch.dual.dualize_distinct`); B is
+    ``Qd.shape[0]``.  ``Y0`` warm-starts the solve (one column seeds
     the whole batch); the default is the reference's cold start
     ``Y = y0 * ones`` (PQP_CPU.c:710).  ``retry_cold`` (with a warm ``Y0``)
     re-solves failed lanes once from the cold start
     (:func:`retry_cold_solve`).
     """
-    _shared_only(dual)
+    refuse_split_free_distinct(dual)
     N = dual.n_con
     B = _batch_of(dual)
     dev = dual.Qd.device
@@ -296,7 +330,9 @@ def _solve_core(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
     k = cfg.check_every
     dev = Y0.device
 
-    use_kernel = cfg.use_pallas
+    # the update kernels take shared geometry; on 3-D Qd use_pallas is
+    # ignored, as in the JAX package
+    use_kernel = cfg.use_pallas and dual.Qd.dim() == 2
     streamed = None
     if use_kernel:
         from pqp_for_mpc_tpu_torch.ops import kernels as _kernels
@@ -394,14 +430,21 @@ def solve_mixed(primal: PrimalQP, dual: DualQP,
     * ``cfg.max_iters`` caps each phase; the reported ``iters`` is the sum
       of both phases.
 
-    With ``cfg.use_pallas`` past residency (N > 128) the bulk updates run in
-    the streamed kernel's bf16 mode (K3) and phase 2 in its f32 mode; CPU
-    tensors run its plain version.  Shared (2-D) geometry only.
+    Distinct geometry (3-D ``Qd (B, N, N)``) takes the same path: theta
+    then comes from each instance's own rounded negative rowsums, and every
+    product is per instance.  A split-free distinct dual raises before
+    phase 1, since phase 2 could not run it
+    (:func:`refuse_split_free_distinct`).
+
+    With ``cfg.use_pallas`` past residency the bulk updates run a streamed
+    kernel in bf16 mode, its matrix built once per solve: K3 on shared
+    geometry past N = 128 (phase 2 then rides K3's f32 mode), K7 on
+    distinct geometry past ``distinct_fits_resident`` (phase 2 then runs
+    the plain per-instance products, as in the JAX package).  CPU tensors
+    run the kernels' plain versions.
     """
-    if dual.Qd.dim() == 3:
-        raise NotImplementedError(
-            "solve_mixed on distinct (3-D) geometry is not ported yet "
-            "(ROADMAP queue 1, item 8)")
+    distinct = dual.Qd.dim() == 3
+    refuse_split_free_distinct(dual)
     N = dual.n_con
     B = _batch_of(dual)
     dev = dual.Qd.device
@@ -411,36 +454,45 @@ def solve_mixed(primal: PrimalQP, dual: DualQP,
         Y0 = _as2d(Y0)
         if Y0.shape[1] == 1 and B > 1:
             Y0 = Y0.expand(N, B)
-        else:
+        elif not distinct:
             B = Y0.shape[1]
 
     use_kernel = False
-    if cfg.use_pallas:
+    if cfg.use_pallas and distinct:
+        from pqp_for_mpc_tpu_torch.ops import distinct_tiled_kernel as _dt
+        from pqp_for_mpc_tpu_torch.ops.distinct_kernel import \
+            distinct_fits_resident
+        use_kernel = not distinct_fits_resident(N, primal.n_var)
+        streamed_fn = (_dt.distinct_streamed_matrix,
+                       _dt.distinct_streamed_iterations)
+    elif cfg.use_pallas:
         from pqp_for_mpc_tpu_torch.ops import kernels as _kernels
+        from pqp_for_mpc_tpu_torch.ops import tiled_kernel as _tiled
         use_kernel = not _kernels.fits_resident(N)
+        streamed_fn = (_tiled.streamed_matrix,
+                       _tiled.streamed_pqp_iterations)
     floor = torch.full_like(dual.theta, cfg.theta_floor)
     if use_kernel:
         # clamp the diagonal BEFORE the one rounding, exactly as the
         # kernel's bf16 stream is built: phase 1 is one perturbed problem
         # whichever engine runs a given step
-        from pqp_for_mpc_tpu_torch.ops import tiled_kernel as _tiled
-        Qd_bf, theta = _tiled.streamed_matrix(dual.Qd, floor, "bfloat16")
+        Qd_bf, theta = streamed_fn[0](dual.Qd, floor, "bfloat16")
     else:
         Qd_bf = dual.Qd.to(torch.bfloat16)
         theta = torch.maximum(
-            floor, torch.clamp(-Qd_bf.float(), min=0.0).sum(dim=1))
+            floor, torch.clamp(-Qd_bf.float(), min=0.0).sum(dim=-1))
     Qbf = Qd_bf.float()                  # the rounded matrix, exactly
     if not use_kernel:
         Qdn_bf = torch.clamp(-Qbf, min=0.0)
         Qdp_bf = torch.clamp(Qbf, min=0.0)
-    th = theta[:, None]
+    th = theta.T if distinct else theta[:, None]
     Fdn = _as2d(dual.Fdn).expand(N, B)
     Fdp = _as2d(dual.Fdp).expand(N, B)
     Fd = _as2d(dual.Fd)
 
     def dot_bf(A, Y):
         # bf16 x bf16 products are exact in float32; the sum stays float32
-        return A @ Y.bfloat16().float()
+        return _mv(A, Y.bfloat16().float())
 
     def upd(Y):
         tY = th * Y
@@ -470,9 +522,8 @@ def solve_mixed(primal: PrimalQP, dual: DualQP,
 
     def mult(n, Y, frozen):
         if use_kernel:
-            Yn = _tiled.streamed_pqp_iterations(Qd_bf, theta, Fdn, Fdp, Y,
-                                                num_iters=n,
-                                                den_eps=cfg.den_eps)
+            Yn = streamed_fn[1](Qd_bf, theta, Fdn, Fdp, Y, num_iters=n,
+                                den_eps=cfg.den_eps)
             return torch.where(frozen[None, :], Y, Yn)
         for _ in range(n):
             Y = torch.where(frozen[None, :], Y, upd(Y))

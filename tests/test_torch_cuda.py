@@ -20,7 +20,9 @@ versions' matrix products.  With acceleration the iteration bar holds on
 99% of lanes: the accel step is kept when f(Y_new) <= f(Y), two float32
 values that agree to rounding near the optimum, so two correct summation
 orders can take different steps and a rare lane's trajectory (never its
-state or U bar) drifts further.
+state or U bar) drifts further.  K5 and K6 are held like K1 and K4, K7
+like K3.  Every kernel whose reductions run in a fixed order repeats every
+bit on a second launch; the tests of K4–K7 check it.
 """
 
 import dataclasses
@@ -29,11 +31,13 @@ import numpy as np
 import pytest
 import torch
 
-from pqp_for_mpc_tpu_torch import dualize
+import pqp_for_mpc_tpu_torch as pqp
+from pqp_for_mpc_tpu_torch import dualize, dualize_distinct
 from pqp_for_mpc_tpu_torch.config import MPC_CONFIG
 from pqp_for_mpc_tpu_torch.models import MPCSpec, condense, double_integrator
 from pqp_for_mpc_tpu_torch.config import SolverConfig
-from pqp_for_mpc_tpu_torch.ops import (kernels, solve_kernel, tiled_kernel,
+from pqp_for_mpc_tpu_torch.ops import (distinct_kernel, distinct_tiled_kernel,
+                                       kernels, solve_kernel, tiled_kernel,
                                        tiled_solve_kernel)
 from pqp_for_mpc_tpu_torch.problem import PrimalQP
 
@@ -274,3 +278,147 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="cpu"):
         kernels.fused_pqp_iterations(dual.Qdn_theta.cpu(), dual.Qdp_theta,
                                      dual.Fdn, dual.Fdp, Y, num_iters=1)
+
+
+def _distinct(dev, N, M, B, gaussian, seed=0, materialize=True):
+    """benchmarks/bench_distinct.py's instances (make_instances), drawn from
+    NumPy as there: {-1, 0, 1} Gp, or gaussian Gp with the strongly
+    regularized Qp of its streamed family."""
+    rng = np.random.default_rng(seed)
+    L = rng.standard_normal((B, M, M)).astype(np.float32) / np.sqrt(M)
+    Qp = np.einsum("bij,bkj->bik", L, L) + 2.0 * np.eye(M, dtype=np.float32)
+    if gaussian:
+        Qp = Qp + (M - 2.0) * np.eye(M, dtype=np.float32)
+        Gp = rng.standard_normal((B, N, M)).astype(np.float32)
+        Fp = (rng.standard_normal((M, B)) * 3).astype(np.float32)
+        Mp = np.zeros(B, np.float32)
+        Kp = rng.uniform(1.0, 10.0, (N, B)).astype(np.float32)
+    else:
+        Gp = rng.integers(-1, 2, (B, N, M)).astype(np.float32)
+        Fp = (rng.standard_normal((M, B)) * 3).astype(np.float32)
+        Mp = rng.standard_normal(B).astype(np.float32)
+        Kp = rng.uniform(1.0, 8.0, (N, B)).astype(np.float32)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    primal = PrimalQP(Qp=t(Qp), Qp_inv=t(np.linalg.inv(Qp)), Fp=t(Fp),
+                      Mp=t(Mp), Gp=t(Gp), Kp=t(Kp))
+    return primal, dualize_distinct(primal, materialize_splits=materialize)
+
+
+#: bench_distinct.py's configuration (its lines 83-85)
+DISTINCT_CFG = SolverConfig(max_iters=20000, check_every=8, y0=1.0, erc=1e-4,
+                            eac=1e-4, eaj=1e-3, erj=1e-4,
+                            strict_weak_duality=False)
+
+K5_CASES = {
+    "n200_m50": (DISTINCT_CFG, 200, 50, 3),
+    "ragged_n203_m51": (DISTINCT_CFG, 203, 51, 3),
+    "accel": (dataclasses.replace(DISTINCT_CFG, check_every=4,
+                                  accel_every=4), 200, 50, 3),
+    # accelerated: ~2,200 iterations where the plain update needs ~10x more
+    "n1024_m256_accel": (dataclasses.replace(DISTINCT_CFG, accel_every=8),
+                         1024, 256, 3),
+}
+
+
+def _whole_solve_parity(out, out_p, check_every, accel):
+    y, u, it, st = out
+    y_p, u_p, it_p, st_p = out_p
+    assert bool((st == st_p).all())
+    assert bool((st_p == 1).any())
+    within = ((it - it_p).abs() <= _bar(it_p, check_every)).float()
+    assert float(within.mean()) >= (0.99 if accel else 1.0)
+    scale = max(1.0, float(u_p.abs().max()))
+    assert float((u - u_p).abs().max()) <= 5e-3 * scale
+
+
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_k5_kernel_matches_plain(dev, case):
+    cfg, N, M, B = K5_CASES[case]
+    primal, dual = _distinct(dev, N, M, B, gaussian=False)
+    args, kw = distinct_kernel.distinct_inputs(primal, dual, None, cfg)
+    k5 = distinct_kernel.fused_full_solve_distinct
+    before = k5.launches
+    out = k5(*args, **kw)
+    out_p = distinct_kernel.fused_full_solve_distinct_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    _whole_solve_parity(out, out_p, cfg.check_every, cfg.accel_every)
+    again = k5(*args, **kw)
+    assert all(bool((a == b).all()) for a, b in zip(again, out))
+
+
+#: bench_mixed.py --distinct --accel's configuration (its lines 78-83)
+STREAMED_CFG = SolverConfig(max_iters=30000, check_every=16, accel_every=16,
+                            strict_weak_duality=False,
+                            gap_from_complementarity=True, erc=1e-6,
+                            eac=1e-6, eaj=1e-6, erj=1e-6)
+
+K6_CASES = {
+    "explicit_gap_n200": (SolverConfig(max_iters=4000, check_every=8,
+                                       y0=10.0, strict_weak_duality=True),
+                          200, 50, 3),
+    "accel_n200": (STREAMED_CFG, 200, 50, 3),
+    "ragged_n203_m51": (STREAMED_CFG, 203, 51, 3),
+    "accel_n1024": (STREAMED_CFG, 1024, 256, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_k6_kernel_matches_plain(dev, case):
+    cfg, N, M, B = K6_CASES[case]
+    primal, dual = _distinct(dev, N, M, B, gaussian=True, materialize=False)
+    args, kw = distinct_tiled_kernel.distinct_tiled_inputs(primal, dual,
+                                                           None, cfg)
+    k6 = distinct_tiled_kernel.fused_full_solve_distinct_tiled
+    before = k6.launches
+    out = k6(*args, **kw)
+    out_p = distinct_tiled_kernel.fused_full_solve_distinct_tiled_reference(
+        *args, **kw)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 1
+    _whole_solve_parity(out, out_p, cfg.check_every, cfg.accel_every)
+    again = k6(*args, **kw)
+    assert all(bool((a == b).all()) for a, b in zip(again, out))
+
+
+@pytest.mark.parametrize("N", [200, 203, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k7_kernel_matches_plain(dev, N, dtype):
+    _, dual = _distinct(dev, N, N // 4, 3, gaussian=True,
+                        materialize=False)
+    Y = torch.as_tensor(np.random.default_rng(1).uniform(0.5, 2.0, (N, 3))
+                        .astype(np.float32), device=dev)
+    Q, th = distinct_tiled_kernel.distinct_streamed_matrix(dual.Qd,
+                                                           dual.theta, dtype)
+    args = (Q, th, dual.Fdn, dual.Fdp, Y)
+    k7 = distinct_tiled_kernel.distinct_streamed_iterations
+    before = k7.launches[dtype]
+    got = k7(*args, num_iters=16, den_eps=1e-30)
+    want = distinct_tiled_kernel.distinct_streamed_iterations_reference(
+        *args, num_iters=16, den_eps=1e-30)
+    torch.cuda.synchronize()
+    assert k7.launches[dtype] == before + 1
+    rtol = 1e-5 if dtype == "float32" else 1e-3
+    torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5)
+    assert bool((k7(*args, num_iters=16, den_eps=1e-30) == got).all())
+
+
+def test_distinct_routes_launch_their_kernels(dev):
+    # resident: solve_auto -> "fused_distinct" -> K5
+    primal, dual = _distinct(dev, 200, 50, 16, gaussian=False)
+    k5 = distinct_kernel.fused_full_solve_distinct
+    before = k5.launches
+    res = pqp.solve_auto(primal, dual, cfg=DISTINCT_CFG)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    assert float(res.converged.float().mean()) >= 0.99
+    # past the K5 line: solve_auto -> "mixed" -> K7 bf16, then plain f32
+    primal, dual = _distinct(dev, 1216, 304, 2, gaussian=True)
+    assert pqp.route_solve(1216, 2, True, STREAMED_CFG, m_dim=304,
+                           platform="cuda") == "mixed"
+    k7 = distinct_tiled_kernel.distinct_streamed_iterations.launches
+    bf16, f32 = k7["bfloat16"], k7["float32"]
+    res = pqp.solve_auto(primal, dual, cfg=STREAMED_CFG)
+    torch.cuda.synchronize()
+    assert k7["bfloat16"] > bf16 and k7["float32"] == f32
+    assert bool(res.converged.all())

@@ -92,7 +92,7 @@ CASES = ["di_h7", "thermal_h1", "gen_12x30", "gen_25x60"]
 def test_assemble_matches_jax(case):
     data, x = CONDENSED[case]()
     want = data.assemble(x=jnp.asarray(x), Qp=data.qp())
-    tdata = convert.condensed_from_numpy(convert.to_numpy(data))
+    tdata = convert.condensed_from_numpy(convert.to_numpy(data), device="cpu")
     got = tdata.assemble(x=torch.as_tensor(x), Qp=tdata.qp())
     for field, w in convert.to_numpy(want).items():
         _close(getattr(got, field), w)
@@ -107,7 +107,7 @@ def test_assemble_matches_jax(case):
 @pytest.mark.parametrize("case", CASES)
 def test_dual_geometry_matches_jax(case, materialize):
     jp = _jax_primal(case)
-    tp = convert.primal_from_numpy(convert.to_numpy(jp))
+    tp = convert.primal_from_numpy(convert.to_numpy(jp), device="cpu")
     want = jdual.dual_geometry(jp.Gp, jp.Qp_inv, theta_floor=5.0,
                                materialize_splits=materialize)
     got = tdual.dual_geometry(tp.Gp, tp.Qp_inv, theta_floor=5.0,
@@ -121,7 +121,7 @@ def test_dual_geometry_matches_jax(case, materialize):
 @pytest.mark.parametrize("case", CASES)
 def test_dualize_forcing_matches_jax(case, materialize):
     jp = _jax_primal(case)
-    tp = convert.primal_from_numpy(convert.to_numpy(jp))
+    tp = convert.primal_from_numpy(convert.to_numpy(jp), device="cpu")
     want = jdual.dualize(jp, materialize_splits=materialize)
     got = tdual.dualize(tp, materialize_splits=materialize)
     mp_scale = float(np.abs(np.asarray(jp.Mp)).max())
@@ -139,7 +139,7 @@ def test_dualize_forcing_matches_jax(case, materialize):
 @pytest.mark.parametrize("case", CASES)
 def test_primal_from_dual_matches_jax(case):
     jp = _jax_primal(case)
-    tp = convert.primal_from_numpy(convert.to_numpy(jp))
+    tp = convert.primal_from_numpy(convert.to_numpy(jp), device="cpu")
     N = int(jp.Gp.shape[0])
     Y = np.random.default_rng(3).uniform(0.0, 2.0, (N, B)).astype(np.float32)
     want = jdual.primal_from_dual(jp, jnp.asarray(Y))
@@ -149,7 +149,7 @@ def test_primal_from_dual_matches_jax(case):
 def test_convert_round_trip_keeps_fields_and_none():
     jp = _jax_primal("di_h7")
     dual_np = convert.to_numpy(jdual.dualize(jp, materialize_splits=False))
-    td = convert.dual_from_numpy(dual_np)
+    td = convert.dual_from_numpy(dual_np, device="cpu")
     assert td.Qdp_theta is None and td.Qdn_theta is None
     back = convert.to_numpy(td)
     assert set(back) == set(dual_np)
@@ -159,4 +159,4 @@ def test_convert_round_trip_keeps_fields_and_none():
         else:
             np.testing.assert_array_equal(back[k], v)
     with pytest.raises(ValueError, match="no fields"):
-        convert.primal_from_numpy({"Qd": dual_np["Qd"]})
+        convert.primal_from_numpy({"Qd": dual_np["Qd"]}, device="cpu")

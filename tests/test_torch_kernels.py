@@ -65,8 +65,9 @@ def _workload(per_lane_kp=False):
               .uniform(0.0, 2.0, (jp.Kp.shape[0], B))).astype(np.float32)
         jp = dataclasses.replace(jp, Kp=jnp.asarray(kp))
     jd = jdualize(jp)
-    return (jp, jd, convert.primal_from_numpy(convert.to_numpy(jp)),
-            convert.dual_from_numpy(convert.to_numpy(jd)))
+    return (jp, jd,
+            convert.primal_from_numpy(convert.to_numpy(jp), device="cpu"),
+            convert.dual_from_numpy(convert.to_numpy(jd), device="cpu"))
 
 
 def _k2_inputs(jd, shared):

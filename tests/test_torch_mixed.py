@@ -60,8 +60,9 @@ def _random_qp(N=96, M=32, B=4, seed=0):
         Gp=jnp.asarray(rng.normal(0, 1, (N, M)).astype(np.float32)),
         Kp=jnp.asarray(rng.uniform(1, 10, N).astype(np.float32)))
     jd = jdualize(jp)
-    return (jp, jd, convert.primal_from_numpy(convert.to_numpy(jp)),
-            convert.dual_from_numpy(convert.to_numpy(jd)))
+    return (jp, jd,
+            convert.primal_from_numpy(convert.to_numpy(jp), device="cpu"),
+            convert.dual_from_numpy(convert.to_numpy(jd), device="cpu"))
 
 
 def _parity(got, want, check_every):
@@ -129,11 +130,27 @@ def test_solve_mixed_reports_both_phases_and_caps_each():
     assert int(got.iters.max()) > cfg.max_iters
 
 
-def test_solve_mixed_distinct_geometry_raises():
-    jp, jd, tp, td = _random_qp(B=2)
-    td3 = dataclasses.replace(td, Qd=td.Qd.expand(2, *td.Qd.shape))
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        tsolver.solve_mixed(tp, td3, cfg=ACCEL)
+def test_solve_mixed_distinct_geometry_matches_jax():
+    """The shared random QP restated as distinct geometry — its matrices
+    repeated per instance — runs the distinct half of solve_mixed (theta
+    per instance, per-instance products) in both packages."""
+    jp, jd, tp, td = _random_qp(B=2, seed=5)
+    rep = lambda a: jnp.broadcast_to(a, (2,) + a.shape)
+    jp3 = dataclasses.replace(jp, Qp=rep(jp.Qp), Qp_inv=rep(jp.Qp_inv),
+                              Gp=rep(jp.Gp))
+    jd3 = dataclasses.replace(jd, Qd=rep(jd.Qd), theta=rep(jd.theta),
+                              Qdp_theta=rep(jd.Qdp_theta),
+                              Qdn_theta=rep(jd.Qdn_theta))
+    tp3 = convert.primal_from_numpy(convert.to_numpy(jp3), device="cpu")
+    td3 = convert.dual_from_numpy(convert.to_numpy(jd3), device="cpu")
+    want = jsolver.solve_mixed(jp3, jd3, cfg=_jcfg(ACCEL))
+    got = tsolver.solve_mixed(tp3, td3, cfg=ACCEL)
+    assert np.asarray(want.converged).all()
+    _parity(got, want, ACCEL.check_every)
+    # the same lanes as the shared-geometry solve of the same problem
+    shared = tsolver.solve_mixed(tp, td, cfg=ACCEL)
+    np.testing.assert_allclose(got.U.numpy(), shared.U.numpy(), rtol=5e-3,
+                               atol=5e-3)
 
 
 def test_slice_solve_mixed_rides_the_streamed_kernel(monkeypatch):

@@ -59,7 +59,7 @@ def test_condense_matches_jax(case):
     make, H, extra = PLANTS[case]
     want = convert.to_numpy(jcondense(_spec(make(), H, 0.5, **extra)))
     got = convert.to_numpy(condense(_spec(make(), H, 0.5, cls=TSpec,
-                                          **extra)))
+                                          **extra), device="cpu"))
     assert set(got) == set(want)
     for k, w in want.items():
         if w is None:
@@ -110,3 +110,18 @@ def test_controller_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ctrl.rollout_jit([2.0, 0.0], 5)
     assert dataclasses.is_dataclass(ctrl.data)
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card, an entry point that was not asked for the CPU
+    raises instead of running there."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults build there")
+    spec = _loop_spec(TSpec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MPCController(spec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        condense(spec)
+    arrays = convert.to_numpy(condense(spec, device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.condensed_from_numpy(arrays)

@@ -65,9 +65,107 @@ def test_route_solve_decisions(args, engine):
                            warm=warm) == engine
 
 
-def test_route_solve_distinct_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pqp.route_solve(28, 4096, True, SMOKE, platform="cuda")
+#: bench_distinct.py's configuration (its lines 83-85) and bench_mixed.py
+#: --distinct --accel's (its lines 78-83)
+DISTINCT_CFG = pqp.SolverConfig(max_iters=20000, check_every=8, y0=1.0,
+                                erc=1e-4, eac=1e-4, eaj=1e-3, erj=1e-4,
+                                strict_weak_duality=False)
+STREAMED_CFG = pqp.SolverConfig(max_iters=30000, check_every=16,
+                                accel_every=16, strict_weak_duality=False,
+                                gap_from_complementarity=True, erc=1e-6,
+                                eac=1e-6, eaj=1e-6, erj=1e-6)
+
+DISTINCT_ROUTES = {
+    # name: (n_con, batch, cfg, platform, m_dim) -> engine
+    "bench_distinct": ((400, 1024, DISTINCT_CFG, "cuda", 100),
+                       "fused_distinct"),
+    "bench_mixed_distinct": ((2048, 8, STREAMED_CFG, "cuda", 512), "mixed"),
+    # where K5 would run, a certificate K5 does not compute rides the
+    # plain check (the JAX package sends both to K5)
+    "dual_gradient": ((400, 1024, dataclasses.replace(
+        DISTINCT_CFG, feas_from_dual_gradient=True), "cuda", 100), "xla"),
+    "complementarity": ((400, 1024, dataclasses.replace(
+        DISTINCT_CFG, gap_from_complementarity=True), "cuda", 100), "xla"),
+    "cpu": ((400, 1024, DISTINCT_CFG, "cpu", 100), "xla"),
+    "no_m_dim": ((400, 1024, DISTINCT_CFG, "cuda", None), "mixed"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DISTINCT_ROUTES))
+def test_route_solve_distinct_decisions(case):
+    (n, b, cfg, platform, m), engine = DISTINCT_ROUTES[case]
+    assert pqp.route_solve(n, b, True, cfg, m_dim=m,
+                           platform=platform) == engine
+
+
+def _distinct_problem(materialize=True):
+    """tests/test_distinct_kernel.py's instances (B=5, M=6, N=16), built
+    by the JAX package: (JAX primal, JAX dual, port primal, port dual)."""
+    import jax.numpy as jnp
+    from pqp_for_mpc_tpu.dual import dualize_distinct as jdd
+    from pqp_for_mpc_tpu.problem import PrimalQP as JPrimal
+    from pqp_for_mpc_tpu_torch import convert
+
+    rng = np.random.default_rng(0)
+    B, M, N = 5, 6, 16
+    L = rng.standard_normal((B, M, M)).astype(np.float32)
+    Qp = L @ L.transpose(0, 2, 1) + M * np.eye(M, dtype=np.float32)
+    jp = JPrimal(Qp=jnp.asarray(Qp),
+                 Qp_inv=jnp.asarray(np.linalg.inv(Qp).astype(np.float32)),
+                 Fp=jnp.asarray(3 * rng.standard_normal((M, B))
+                                .astype(np.float32)),
+                 Mp=jnp.asarray(rng.standard_normal(B).astype(np.float32)),
+                 Gp=jnp.asarray(rng.integers(-1, 2, (B, N, M))
+                                .astype(np.float32)),
+                 Kp=jnp.asarray(rng.uniform(1.0, 8.0, (N, B))
+                                .astype(np.float32)))
+    jd = jdd(jp, materialize_splits=materialize)
+    return (jp, jd,
+            convert.primal_from_numpy(convert.to_numpy(jp), device="cpu"),
+            convert.dual_from_numpy(convert.to_numpy(jd), device="cpu"))
+
+
+def test_solve_auto_distinct_matches_jax_on_cpu():
+    # off the card both packages route to their plain solve; bar: the
+    # oracle parity bar of tests/test_torch_solver.py
+    from pqp_for_mpc_tpu.config import SolverConfig as JConfig
+    from pqp_for_mpc_tpu.routing import solve_auto as j_solve_auto
+
+    jp, jd, tp, td = _distinct_problem()
+    cfg = dataclasses.replace(DISTINCT_CFG, check_every=4)
+    want = j_solve_auto(jp, jd, cfg=JConfig(**dataclasses.asdict(cfg)))
+    got = pqp.solve_auto(tp, td, cfg=cfg)
+    conv = np.asarray(want.converged)
+    assert conv.all()
+    np.testing.assert_array_equal(got.converged.numpy(), conv)
+    it_w = np.asarray(want.iters).astype(np.int64)
+    bar = -(-np.maximum(5, it_w // 5) // 4) * 4
+    assert (np.abs(got.iters.numpy() - it_w) <= bar).all()
+    scale = max(1.0, float(np.abs(np.asarray(want.U)).max()))
+    np.testing.assert_allclose(got.U.numpy(), np.asarray(want.U),
+                               atol=5e-3 * scale, rtol=5e-3)
+
+
+def test_solve_auto_split_free_distinct_meets_the_named_error():
+    _, _, tp, td = _distinct_problem(materialize=False)
+    with pytest.raises(ValueError, match="split-free distinct"):
+        pqp.solve_auto(tp, td, cfg=DISTINCT_CFG)
+
+
+def test_solve_auto_distinct_retry_cold_through_mixed():
+    # retry_cold works for every engine: a poisoned warm start (the
+    # absorbing zero) on the distinct "mixed" engine is rescued cold.
+    # Kp scaled by 0.1 makes constraints active, so zero is not optimal
+    _, _, tp, _ = _distinct_problem()
+    tp = dataclasses.replace(tp, Kp=0.1 * tp.Kp)
+    td = pqp.dualize_distinct(tp)
+    cfg = dataclasses.replace(DISTINCT_CFG, max_iters=2000)
+    Y0 = torch.zeros(16, 5)
+    res = pqp.solve_auto(tp, td, Y0=Y0, cfg=cfg, retry_cold=True,
+                         engine="mixed")
+    assert bool(res.converged.all())
+    assert not bool(pqp.solve_auto(tp, td, Y0=Y0, cfg=cfg,
+                                   engine="mixed").converged.all())
 
 
 def test_forced_fused_on_cpu_raises():
@@ -78,12 +176,12 @@ def test_forced_fused_on_cpu_raises():
 
 @pytest.mark.parametrize("engine", ["fused_distinct",
                                     "fused_distinct_tiled"])
-def test_unported_engines_raise(engine):
-    primal, dual = _problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pqp.solve_auto(primal, dual, cfg=SMOKE, engine=engine)
+def test_forced_distinct_engines_on_cpu_raise(engine):
+    _, _, primal, dual = _distinct_problem()
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        pqp.solve_auto(primal, dual, cfg=DISTINCT_CFG, engine=engine)
     with pytest.raises(ValueError, match="unknown engine"):
-        pqp.solve_auto(primal, dual, cfg=SMOKE, engine="nope")
+        pqp.solve_auto(primal, dual, cfg=DISTINCT_CFG, engine="nope")
 
 
 @pytest.mark.parametrize("materialize", [True, False])
@@ -124,9 +222,10 @@ def test_solve_auto_mixed_engine_matches_jax_solve_mixed(accel):
     jd = jdualize(jp)
     want = jsolver.solve_mixed(jp, jd,
                                cfg=JConfig(**dataclasses.asdict(cfg)))
-    got = pqp.solve_auto(convert.primal_from_numpy(convert.to_numpy(jp)),
-                         convert.dual_from_numpy(convert.to_numpy(jd)),
-                         cfg=cfg, engine="mixed")
+    got = pqp.solve_auto(
+        convert.primal_from_numpy(convert.to_numpy(jp), device="cpu"),
+        convert.dual_from_numpy(convert.to_numpy(jd), device="cpu"),
+        cfg=cfg, engine="mixed")
     conv = np.asarray(want.converged)
     assert conv.all()
     np.testing.assert_array_equal(got.converged.numpy(), conv)
@@ -156,6 +255,8 @@ def test_import_leaves_jax_out():
             " pqp_for_mpc_tpu_torch.ops.solve_kernel,"
             " pqp_for_mpc_tpu_torch.ops.tiled_kernel,"
             " pqp_for_mpc_tpu_torch.ops.tiled_solve_kernel,"
+            " pqp_for_mpc_tpu_torch.ops.distinct_kernel,"
+            " pqp_for_mpc_tpu_torch.ops.distinct_tiled_kernel,"
             " pqp_for_mpc_tpu_torch.convert;"
             " print(sorted(m for m in set(sys.modules) - before"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'pqp_for_mpc_tpu')))")

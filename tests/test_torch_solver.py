@@ -57,8 +57,8 @@ def _workload(seed=0, materialize=True):
         .astype(np.float32)
     jp = data.assemble(x=jnp.asarray(x), Qp=data.qp())
     jd = jdualize(jp, materialize_splits=materialize)
-    tp = convert.primal_from_numpy(convert.to_numpy(jp))
-    td = convert.dual_from_numpy(convert.to_numpy(jd))
+    tp = convert.primal_from_numpy(convert.to_numpy(jp), device="cpu")
+    td = convert.dual_from_numpy(convert.to_numpy(jd), device="cpu")
     return jp, jd, tp, td
 
 
@@ -263,8 +263,8 @@ def test_fan_out_edge_lanes_fail_alike():
         .astype(np.float32)[:, lanes]
     jp = data.assemble(x=jnp.asarray(x), Qp=data.qp())
     jd = jdualize(jp)
-    tp = convert.primal_from_numpy(convert.to_numpy(jp))
-    td = convert.dual_from_numpy(convert.to_numpy(jd))
+    tp = convert.primal_from_numpy(convert.to_numpy(jp), device="cpu")
+    td = convert.dual_from_numpy(convert.to_numpy(jd), device="cpu")
     want = jsolver.solve_batched(jp, jd, cfg=JMPC)
     got = tsolver.solve_batched(tp, td, cfg=MPC_CONFIG)
     results = (

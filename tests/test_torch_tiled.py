@@ -65,8 +65,9 @@ def _random_problem(N, M, B, seed, fp_scale):
                  Fp=jnp.asarray(Fp), Mp=jnp.zeros((B,), jnp.float32),
                  Gp=jnp.asarray(Gp), Kp=jnp.asarray(Kp))
     jd = jdualize(jp)
-    return (jp, jd, convert.primal_from_numpy(convert.to_numpy(jp)),
-            convert.dual_from_numpy(convert.to_numpy(jd)))
+    return (jp, jd,
+            convert.primal_from_numpy(convert.to_numpy(jp), device="cpu"),
+            convert.dual_from_numpy(convert.to_numpy(jd), device="cpu"))
 
 
 @pytest.mark.parametrize("N,B,iters", [
