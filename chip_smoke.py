@@ -26,7 +26,15 @@ at full size and times them:
   ``solve_batched``) and the streamed path at B = 8, N = 2048, M = 512
   (``solve_auto`` -> ``"mixed"`` -> K7 bf16 then the plain f32 refine,
   ``solve_fused_distinct_tiled`` -> K6 on the split-free dual, and the plain
-  ``solve_batched``), each under its JAX benchmark's configuration.
+  ``solve_batched``), each under its JAX benchmark's configuration;
+* the packed whole solve (kernel K8): ``solve_fused_packed`` on the main
+  path's batch, timed beside K1 on the same call, with K1's verdicts;
+* the H = 16 closed loop through ``MPCController.rollout_jit`` (the loop
+  kept on the card, 200 steps) timed against ``rollout``;
+* the command line, as subprocesses of ``python -m pqp_for_mpc_tpu_torch``:
+  ``generate``, ``solve-file`` (engines auto, fused and mixed; the auto
+  line held against the same command on the CPU), ``bench`` (riding K2),
+  ``rollout --jit`` and ``serve``.
 
 Each kernel is held against its plain version at the shapes its path gives
 it.  The ``launches`` of the kernel table are those of each path's own
@@ -90,6 +98,17 @@ JAX_DISTINCT_ITERS = {"f32": 5301.0, "mixed": "8229-8233"}
 #: and to the plain solve's verdicts, not to 99%
 DISTINCT_RESIDENT_CERTIFIED = 0.93
 
+#: the H=16 closed loop's batch for the K8 comparisons (N=64, G=2), and the
+#: length of the rollout_jit drive
+B_N64, LOOP_STEPS = 4096, 200
+#: the solve-file flags of tests/test_torch_cli.py (tests/test_cli.py's
+#: with erc = eac = 1e-4) and the generator seed whose 12 x 30 instance
+#: certifies in both packages under them
+CLI_FLAGS = ["--y0", "0.01", "--accel-every", "4", "--check-every", "8",
+             "--no-strict", "--max-iters", "50000", "--eaj", "1e-3",
+             "--erj", "1e-4", "--erc", "1e-4", "--eac", "1e-4"]
+CLI_SEED = 3
+
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32 on the
 #: CUDA cores and bf16 on the tensor cores, FLOP/s; and the L2 size
 HBM_BPS, F32_FLOPS, BF16_FLOPS, L2_BYTES = 3.35e12, 67e12, 989e12, 50e6
@@ -99,17 +118,24 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def workload(B: int, device, seed: int = 0):
-    """The M=7/N=28 condensed double-integrator batch: (primal, dual)."""
+def mpc_spec(horizon: int = 7, r: float = 2.5):
+    """The double integrator at ``horizon`` (M = horizon, N = 4 horizon),
+    |u| <= 1, |du| <= 0.5, reference ``r``: horizon 7 with r = 2.5 is the
+    main path's M=7/N=28 workload, horizon 16 with r = 0 the closed loop."""
+    from pqp_for_mpc_tpu_torch.models import MPCSpec, double_integrator
+    return MPCSpec(double_integrator(), horizon=horizon, Qy=np.eye(1),
+                   R=0.05 * np.eye(1), r=np.array([r]), u_min=-np.ones(1),
+                   u_max=np.ones(1), du_max=0.5 * np.ones(1))
+
+
+def workload(B: int, device, seed: int = 0, horizon: int = 7,
+             r: float = 2.5):
+    """A batch of ``mpc_spec(horizon, r)`` from x0 ~ N(0, 0.5^2) drawn
+    with NumPy: (primal, dual)."""
     from pqp_for_mpc_tpu_torch import dualize
-    from pqp_for_mpc_tpu_torch.models import (MPCSpec, condense,
-                                              double_integrator)
+    from pqp_for_mpc_tpu_torch.models import condense
     import torch
-    spec = MPCSpec(double_integrator(), horizon=7, Qy=np.eye(1),
-                   R=0.05 * np.eye(1), r=np.array([2.5]),
-                   u_min=-np.ones(1), u_max=np.ones(1),
-                   du_max=0.5 * np.ones(1))
-    data = condense(spec, device=device)
+    data = condense(mpc_spec(horizon, r), device=device)
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.normal(0.0, 0.5, (2, B)).astype(np.float32),
                         device=device)
@@ -273,25 +299,101 @@ def k3_parity(got, want, rtol: float) -> dict:
                 ok=bool((err <= 1e-5 + rtol * want.abs()).all()))
 
 
-def k4_parity(out_kernel, out_plain, check_every: int) -> dict:
-    """K4 against its plain version: lane states equal, iterations within
-    max(5, iters // 5) rounded up to whole checks, U within
-    5e-3 * max(1, |U|max) (k1_parity's bar)."""
+def solve_parity(out_kernel, out_plain, check_every: int,
+                 accel: bool = False) -> dict:
+    """A whole-solve kernel (K4, K5, K6, K8) against its plain version: lane
+    states equal, iterations within max(5, iters // 5) rounded up to whole
+    checks, U within 5e-3 * max(1, |U|max) (k1_parity's bar).  With
+    ``accel`` the iteration bar holds on 99% of lanes, as in K1's card
+    tests: the accel step is kept when f(Y_new) <= f(Y), two float32 values
+    equal to rounding near the optimum."""
     import torch
     _, u_k, it_k, st_k = out_kernel
     _, u_p, it_p, st_p = out_plain
     states_equal = bool((st_k == st_p).all())
     bar = torch.clamp(it_p.long() // 5, min=5)
     bar = -(-bar // check_every) * check_every
-    iters_ok = bool(((it_k.long() - it_p.long()).abs() <= bar).all())
+    in_bar = float(((it_k.long() - it_p.long()).abs() <= bar).float().mean())
     tol = 5e-3 * max(1.0, float(u_p.abs().max()))
     err = float((u_k - u_p).abs().max())
-    return dict(states_equal=states_equal, iters_within_bar=iters_ok,
+    return dict(states_equal=states_equal, iters_in_bar=in_bar,
                 iters_mean_kernel=float(it_k.float().mean()),
                 iters_mean_plain=float(it_p.float().mean()),
                 certified_kernel=int((st_k == 1).sum()),
                 max_abs_err=err, tol_U=tol,
-                ok=states_equal and iters_ok and err <= tol)
+                ok=(states_equal and err <= tol
+                    and in_bar >= (0.99 if accel else 1.0)))
+
+
+def razor_edge_audit(primal, dual, cfg, Y, lanes) -> list:
+    """The float64 audit of ROADMAP's razor-edge rule
+    (``benchmarks/conformance.py:f64_gap_audit``, extended to every part
+    of the test): for each lane, each tested quantity of the four-part
+    test recomputed in float64 from the float32 iterate ``Y``, its
+    distance to its threshold and the float32 noise floor there (eps32
+    times the largest term entering it).  A lane is razor-edge when one of
+    its tests sits within its floor."""
+    import torch
+    f64 = lambda t: t.double()
+    out = []
+    for b in lanes:
+        col = lambda t: f64(t if t.dim() == 1 else t[:, b])
+        y = f64(Y[:, b])
+        Kp, Fp, Fd = col(primal.Kp), col(primal.Fp), col(dual.Fd)
+        u = -f64(primal.Qp_inv) @ (Fp + f64(primal.Gp).T @ y)
+        gu = f64(primal.Gp) @ u
+        slack = Kp + torch.clamp(cfg.erc * Kp, min=cfg.eac)
+        feas = float((gu - slack).max())
+        feas_floor = 2.0 ** -23 * float(gu.abs().max())
+        qy, fy = float(y @ (f64(dual.Qd) @ y)), float(Fd @ y)
+        md = float(f64(dual.Md.reshape(-1))[b if dual.Md.dim() else 0])
+        mp = float(f64(primal.Mp.reshape(-1))[b if primal.Mp.dim() else 0])
+        uq = float(u @ (f64(primal.qp()) @ u))
+        fu = float(Fp @ u)
+        jd = 0.5 * qy + fy + 0.5 * md
+        if cfg.gap_from_complementarity:
+            gap, terms = qy + fy, [qy, fy]
+        else:
+            gap = 0.5 * uq + fu + 0.5 * mp + jd
+            terms = [uq, fu, mp, qy, fy, md]
+        gap_floor = 2.0 ** -23 * max(abs(v) for v in terms)
+        margins = {"feas": (feas, feas_floor),
+                   "gap_abs": (gap - cfg.eaj, gap_floor),
+                   "gap_rel": (gap / abs(jd) - cfg.erj, gap_floor / abs(jd))}
+        out.append(dict(lane=int(b), **{k: [m, f] for k, (m, f) in
+                                        margins.items()},
+                        razor=any(abs(m) <= f for m, f in margins.values())))
+    return out
+
+
+def timed_once(fn):
+    """(result, milliseconds) of one call of ``fn``, CUDA events."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def run_cli(*argv, stdin=None, timeout=300):
+    """``python -m pqp_for_mpc_tpu_torch *argv`` from the checkout's root:
+    (exit code, stdout, stderr)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pqp_for_mpc_tpu_torch", *map(str, argv)],
+        input=stdin, capture_output=True, text=True, cwd=root, env=env,
+        timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def cli_fields(line: str) -> dict:
+    return dict(kv.split("=", 1) for kv in line.split() if "=" in kv)
 
 
 def main() -> int:
@@ -301,10 +403,10 @@ def main() -> int:
         return 1
     import pqp_for_mpc_tpu_torch as pqp
     from pqp_for_mpc_tpu_torch.config import MPC_CONFIG
-    from pqp_for_mpc_tpu_torch.models import (MPCController, MPCSpec,
-                                              double_integrator)
-    from pqp_for_mpc_tpu_torch.ops import (build, kernels, solve_kernel,
-                                           tiled_kernel, tiled_solve_kernel)
+    from pqp_for_mpc_tpu_torch.models import MPCController
+    from pqp_for_mpc_tpu_torch.ops import (build, kernels, packed_kernel,
+                                           solve_kernel, tiled_kernel,
+                                           tiled_solve_kernel)
     require("jax" not in sys.modules, "the port imported jax")
 
     dev = torch.device("cuda", 0)
@@ -366,6 +468,51 @@ def main() -> int:
     del primal, dual, Y, got, want, out_k, out_p, args
     torch.cuda.empty_cache()
 
+    # -- phase 3b: K8 (packed whole solve) against its plain version, at
+    #    N=28 (G=4) on B_CMP lanes and N=64 (G=2) on the H=16 workload --
+    k8 = packed_kernel.fused_full_solve_packed
+    k8_plain = packed_kernel.fused_full_solve_packed_reference
+    accel_cfg = dataclasses.replace(smoke_cfg, check_every=4, accel_every=4)
+    mpc_cfg = dataclasses.replace(MPC_CONFIG, feas_from_dual_gradient=False)
+    k8_cases = [
+        ("n28", lambda: workload(B_CMP, dev), smoke_cfg, False),
+        ("n28_accel", lambda: workload(B_CMP, dev), accel_cfg, False),
+        ("n28_per_lane_kp", lambda: workload(B_CMP, dev), dataclasses.replace(
+            smoke_cfg, gap_from_complementarity=False), True),
+        ("n64", lambda: workload(B_N64, dev, horizon=16, r=0.0), smoke_cfg,
+         False),
+        ("n64_accel", lambda: workload(B_N64, dev, horizon=16, r=0.0),
+         mpc_cfg, False),
+    ]
+    errs["k8"] = []
+    for name, make, cfg, per_lane_kp in k8_cases:
+        primal, dual = make()
+        if per_lane_kp:
+            kp = torch.as_tensor(np.random.default_rng(6).uniform(
+                0.0, 2.0, (dual.n_con, primal.Fp.shape[1])).astype(
+                    np.float32), device=dev)
+            primal = dataclasses.replace(primal, Kp=primal.Kp[:, None] + kp)
+            dual = pqp.dualize(primal)
+        args, kw = solve_kernel.fused_inputs(primal, dual, None, cfg)
+        before = k8.launches
+        out_k = k8(*args, **kw)
+        out_p = k8_plain(*args, **kw)
+        again = k8(*args, **kw)
+        torch.cuda.synchronize()
+        require(k8.launches == before + 2, "K8 launch counter did not move")
+        cmp = solve_parity(out_k, out_p, cfg.check_every,
+                           bool(cfg.accel_every))
+        repeat = all(bool((a == b).all()) for a, b in zip(out_k, again))
+        emit("k8_vs_plain", case=name, n=dual.n_con, m=primal.n_var,
+             batch=primal.Fp.shape[1], pack=packed_kernel.pack_factor(
+                 dual.n_con), repeats_bits=repeat, **cmp)
+        require(cmp["ok"], f"K8 ({name}) disagrees with its plain version: "
+                           f"{cmp}")
+        require(repeat, f"K8 ({name}) did not repeat its bits")
+        errs["k8"].append(cmp["max_abs_err"])
+        del primal, dual, args, out_k, out_p, again
+    torch.cuda.empty_cache()
+
     # -- phase 4: the main path at full size -----------------------------
     primal, dual = workload(B_MAIN, dev)
     kernels.fused_pqp_iterations.launches = 0
@@ -400,10 +547,40 @@ def main() -> int:
     require(launches["k2"] > 0,
             "solve_batched(use_pallas=True) did not launch K2")
 
+    # -- phase 4b: the K8 path at full size: solve_fused_packed on the main
+    #    workload, beside K1 (solve_auto's route) on the same batch -------
+    k8.launches = 0
+    res8 = pqp.solve_fused_packed(primal, dual, cfg=smoke_cfg)
+    torch.cuda.synchronize()
+    launches["k8"] = k8.launches
+    res1 = pqp.solve_auto(primal, dual, cfg=smoke_cfg)
+    conv8 = float(res8.converged.float().mean())
+    differ = torch.nonzero(res8.converged != res1.converged).flatten()
+    audit = razor_edge_audit(
+        primal, dual, smoke_cfg,
+        torch.where(res8.converged[None, :], res8.Y, res1.Y),
+        differ.tolist()) if len(differ) else []
+    k8_route_ms = cuda_ms(
+        lambda: pqp.solve_fused_packed(primal, dual, cfg=smoke_cfg), reps=2)
+    k1_route_ms = cuda_ms(
+        lambda: pqp.solve_auto(primal, dual, cfg=smoke_cfg), reps=2)
+    emit("k8_path", batch=B_MAIN, converged_frac=conv8,
+         iters_mean=float(res8.iters.float().mean()),
+         iters_max=int(res8.iters.max()),
+         verdicts_differ_from_k1=len(differ), razor_edge_lanes=audit,
+         k8_route_seconds_per_batch=k8_route_ms / 1e3,
+         k1_route_seconds_per_batch=k1_route_ms / 1e3,
+         k8_route_solves_per_s=B_MAIN / (k8_route_ms / 1e3),
+         launches=launches["k8"], nvidia_smi=smi)
+    require(conv8 >= 0.99, f"solve_fused_packed: only {conv8:.4f} converged")
+    require(all(a["razor"] for a in audit),
+            "K8 and K1 verdicts differ on a lane outside the float32 "
+            f"noise floor: {[a for a in audit if not a['razor']]}")
+    require(launches["k8"] > 0, "solve_fused_packed did not launch K8")
+    del res8, res1
+
     # -- phase 5: the closed loop ----------------------------------------
-    spec = MPCSpec(double_integrator(), horizon=16, Qy=np.eye(1),
-                   R=0.05 * np.eye(1), r=np.zeros(1), u_min=-np.ones(1),
-                   u_max=np.ones(1), du_max=0.5 * np.ones(1))
+    spec = mpc_spec(16, 0.0)
     ctrl = MPCController(spec, device=dev)
     out = ctrl.rollout([2.0, 0.0], 20)
     loop_ok = (bool(out["converged"].all()) and int(out["iters"].max()) < 2000
@@ -425,6 +602,44 @@ def main() -> int:
          k2_launches=kernels.fused_pqp_iterations.launches - k2_before)
     require(kernels.fused_pqp_iterations.launches > k2_before,
             "the fan-out step did not launch K2")
+
+    # -- phase 5b: the H=16 closed loop kept on the card (rollout_jit),
+    #    timed against the host loop (rollout) on the same spec ---------
+    loop = {}
+    for name in ("rollout_jit", "rollout"):
+        ctrl = MPCController(mpc_spec(16, 0.0), device=dev)
+        getattr(ctrl, name)([2.0, 0.0], 5)            # warm-up
+        ctrl.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop[name] = getattr(ctrl, name)([2.0, 0.0], LOOP_STEPS)
+        torch.cuda.synchronize()
+        loop[name]["seconds"] = time.perf_counter() - t0
+    lj, lh = loop["rollout_jit"], loop["rollout"]
+    tol_u = 5e-3 * max(1.0, float(np.abs(lh["u"]).max()))
+    bar = np.maximum(5, lh["iters"] // 5)
+    bar = -(-bar // MPC_CONFIG.check_every) * MPC_CONFIG.check_every
+    in_bar = float((np.abs(lj["iters"] - lh["iters"]) <= bar).mean())
+    du = float(np.abs(lj["u"] - lh["u"]).max())
+    emit("closed_loop_h16_rollout_jit", steps=LOOP_STEPS, nvidia_smi=smi,
+         steps_per_s_rollout_jit=LOOP_STEPS / lj["seconds"],
+         steps_per_s_rollout=LOOP_STEPS / lh["seconds"],
+         certified_rollout_jit=int(lj["converged"].sum()),
+         certified_rollout=int(lh["converged"].sum()),
+         iters_mean_rollout_jit=float(lj["iters"].mean()),
+         iters_mean_rollout=float(lh["iters"].mean()),
+         iters_in_bar=in_bar, max_abs_err_u=du, tol_u=tol_u,
+         max_abs_err_x=float(np.abs(lj["x"] - lh["x"]).max()))
+    require(bool(lj["converged"].all()),
+            "rollout_jit left a step of the H=16 loop uncertified")
+    require(bool(lh["converged"].all()),
+            "rollout left a step of the H=16 loop uncertified")
+    # the bars of tests/test_torch_rollout.py: u within the U bar, the
+    # iteration bar on 26 of 30 steps' share, mean iterations within 10%
+    require(du <= tol_u and in_bar >= 26 / 30
+            and abs(lj["iters"].mean() - lh["iters"].mean())
+            <= 0.1 * lh["iters"].mean(),
+            "rollout_jit and rollout disagree on the H=16 loop")
 
     # -- each kernel against its plain version at the main path's shapes,
     #    then both timed ------------------------------------------------
@@ -450,16 +665,27 @@ def main() -> int:
                           f"main path's batch: {k2_cmp}")
     errs["k1"].append(k1_cmp["max_abs_err"])
     errs["k2"].append(k2_cmp["max_abs_err"])
+    out_k8 = k8(*args, **kw)
+    out_p8, k8_plain_ms = timed_once(lambda: k8_plain(*args, **kw))
+    k8_cmp = solve_parity(out_k8, out_p8, smoke_cfg.check_every, False)
+    emit("k8_vs_plain", case="main_path", n=dual.n_con, m=primal.n_var,
+         batch=B_MAIN, pack=packed_kernel.pack_factor(dual.n_con), **k8_cmp)
+    require(k8_cmp["ok"], f"K8 disagrees with its plain version at the "
+                          f"main path's batch: {k8_cmp}")
+    errs["k8"].append(k8_cmp["max_abs_err"])
+    del out_p8
 
     k1_ms = cuda_ms(lambda: solve_kernel.fused_full_solve(*args, **kw), 2)
     k1_plain_ms = cuda_ms(
         lambda: solve_kernel.fused_full_solve_reference(*args, **kw), 1)
+    k8_ms = cuda_ms(lambda: k8(*args, **kw), 2)
     k2_ms = cuda_ms(lambda: kernels.fused_pqp_iterations(*k2_args, **k2_kw),
                     10)
     k2_plain_ms = cuda_ms(
         lambda: kernels.fused_pqp_iterations_reference(*k2_args, **k2_kw), 10)
     emit("kernel_times", batch=B_MAIN, nvidia_smi=smi, k1_ms=k1_ms,
-         k1_plain_ms=k1_plain_ms, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
+         k1_plain_ms=k1_plain_ms, k8_ms=k8_ms, k8_plain_ms=k8_plain_ms,
+         k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
          k2_num_iters=smoke_cfg.check_every)
     n28, m7 = dual.n_con, primal.n_var
     k1_flops, _ = solve_work(n28, m7, out_k1[2], smoke_cfg.check_every,
@@ -472,7 +698,13 @@ def main() -> int:
                     k2_kw["num_iters"] * 4.0 * n28 * n28 * B_MAIN,
                     F32_FLOPS),
     }
-    del out_k1
+    # K8 computes K1's function: the bound counts N^2 per product per
+    # instance (the function's work), not the kronned (G n_pad)^2
+    k8_flops, _ = solve_work(n28, m7, out_k8[2], smoke_cfg.check_every,
+                             smoke_cfg.accel_every, 0, 0, 0)
+    bounds["k8"] = bound(stored_bytes(*args), sum(
+        t.numel() * t.element_size() for t in out_k8), k8_flops, F32_FLOPS)
+    del out_k1, out_k8
     del primal, dual, Yb, k2_args, args, kw
     torch.cuda.empty_cache()
 
@@ -504,7 +736,7 @@ def main() -> int:
     torch.cuda.synchronize()
     k4_plain_first_s = time.perf_counter() - k4_plain_t0
     out_k4 = tiled_solve_kernel.fused_full_solve_tiled(*t_args, **t_kw)
-    k4_cmp = k4_parity(out_k4, out_p, big_cfg.check_every)
+    k4_cmp = solve_parity(out_k4, out_p, big_cfg.check_every)
     emit("k4_vs_plain", n=N_BIG, m=M_BIG, batch=B_BIG, **k4_cmp)
     require(k4_cmp["ok"], f"K4 disagrees with its plain version: {k4_cmp}")
     errs["k4"] = [k4_cmp["max_abs_err"]]
@@ -602,9 +834,7 @@ def main() -> int:
     # N = 256 > 128: the router sends the warm single-lane steps to "mixed";
     # the same loop through the plain route, for the comparison
     import pqp_for_mpc_tpu_torch.models.mpc as mpc_module
-    spec64 = MPCSpec(double_integrator(), horizon=64, Qy=np.eye(1),
-                     R=0.05 * np.eye(1), r=np.zeros(1), u_min=-np.ones(1),
-                     u_max=np.ones(1), du_max=0.5 * np.ones(1))
+    spec64 = mpc_spec(64, 0.0)
     route64 = pqp.route_solve(256, 1, False, MPC_CONFIG, m_dim=64,
                               platform="cuda", warm=True)
     require(route64 == "mixed", f"H=64 warm step routed to {route64!r}")
@@ -646,7 +876,7 @@ def main() -> int:
     out_p = distinct_kernel.fused_full_solve_distinct_reference(*d_args,
                                                                 **d_kw)
     torch.cuda.synchronize()
-    k5_cmp = k4_parity(out_k5, out_p, dr_cfg.check_every)
+    k5_cmp = solve_parity(out_k5, out_p, dr_cfg.check_every)
     emit("k5_vs_plain", n=N_DR, m=M_DR, batch=B_DR, **k5_cmp)
     require(k5_cmp["ok"], f"K5 disagrees with its plain version: {k5_cmp}")
     errs["k5"] = [k5_cmp["max_abs_err"]]
@@ -744,7 +974,7 @@ def main() -> int:
     out_k6 = k6(*s_args, **s_kw)
     out_p = k6_plain(*s_args, **s_kw)
     torch.cuda.synchronize()
-    k6_cmp = k4_parity(out_k6, out_p, ds_cfg.check_every)
+    k6_cmp = solve_parity(out_k6, out_p, ds_cfg.check_every)
     emit("k6_vs_plain", n=N_DS, m=M_DS, batch=B_DS, **k6_cmp)
     require(k6_cmp["ok"], f"K6 disagrees with its plain version: {k6_cmp}")
     errs["k6"] = [k6_cmp["max_abs_err"]]
@@ -820,6 +1050,63 @@ def main() -> int:
     del sp, sd, sd_free, k7_streams, Y7, s_args, out_k6
     torch.cuda.empty_cache()
 
+    # -- phase 12: the command line on the card, as subprocesses ---------
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        inst = os.path.join(tmp, "inst.txt")
+        rc, out, err = run_cli("generate", 12, 30, "--seed", CLI_SEED,
+                               "-o", inst)
+        require(rc == 0 and "M=12 N=30" in out, f"cli generate: {rc} {err}")
+        lines = {}
+        for engine in ("auto", "fused", "mixed"):
+            rc, out, err = run_cli("solve-file", inst, "--engine", engine,
+                                   *CLI_FLAGS)
+            lines[engine] = out.strip()
+            # auto is held to exit 0 and to the CPU's line below; fused (K1
+            # on one lane) and mixed print their line and may exit 2
+            require(rc in ((0,) if engine == "auto" else (0, 2))
+                    and out.startswith("M=12 N=30 "),
+                    f"cli solve-file --engine {engine}: {rc} {out} {err}")
+        rc, out, err = run_cli("solve-file", inst, *CLI_FLAGS,
+                               "--device", "cpu")
+        require(rc == 0, f"cli solve-file --device cpu: {rc} {out} {err}")
+        card, cpu = cli_fields(lines["auto"]), cli_fields(out.strip())
+        it_c, it_g = int(cpu["iters"]), int(card["iters"])
+        bar = -(-max(5, it_c // 5) // 8) * 8
+        agree = (card["converged"] == cpu["converged"] == "True"
+                 and abs(it_g - it_c) <= bar
+                 and all(abs(float(card[k]) - float(cpu[k]))
+                         <= 1e-3 * max(1.0, abs(float(cpu[k])))
+                         for k in ("Jp", "Jd")))
+        rc, out_b, err = run_cli("bench", "--M", 7, "--N", 28, "--batch",
+                                 1 << 16, "--iters", 8)
+        bench = json.loads(out_b.strip().splitlines()[-1]) if rc == 0 else {}
+        require(bench.get("kernel") == "cuda"
+                and bench.get("platform") == "cuda",
+                f"cli bench did not ride K2: {rc} {out_b} {err}")
+        rc, out_r, err = run_cli("rollout", "--jit", "--steps", LOOP_STEPS)
+        roll = json.loads(out_r.strip().splitlines()[-1]) if rc == 0 else {}
+        require(rc == 0 and roll.get("steps") == LOOP_STEPS,
+                f"cli rollout --jit: {rc} {out_r} {err}")
+        requests = [{"generator_file": inst},
+                    {"spec": {"plant": "double_integrator", "horizon": 16},
+                     "x": [2.0, 0.0]},
+                    {"cmd": "quit"}]
+        rc, out_s, err = run_cli(
+            "serve", *CLI_FLAGS,
+            stdin="".join(json.dumps(r) + "\n" for r in requests))
+        replies = [json.loads(x) for x in out_s.strip().splitlines()]
+        require(rc == 0 and len(replies) == 2
+                and not any("error" in r for r in replies)
+                and all(r["converged"] == r["batch"] for r in replies)
+                and len(replies[1]["u0"]) == 1,
+                f"cli serve: {rc} {out_s} {err}")
+        emit("cli", solve_file=lines, solve_file_cpu=out.strip(),
+             card_agrees_with_cpu=agree, bench=bench, rollout_jit=roll,
+             serve=[{k: r[k] for k in ("batch", "converged", "iters_max")}
+                    for r in replies], nvidia_smi=smi)
+        require(agree, "cli solve-file on the card disagrees with the CPU")
+
     rows = [
         ("k1", "K1 fused_full_solve", "full_solve.cu",
          "solve_kernel.py:295", launches["k1"], errs["k1"], k1_ms,
@@ -841,6 +1128,9 @@ def main() -> int:
         ("k7_bfloat16", "K7 fused_pqp_iterations_distinct_tiled (bfloat16)",
          "pqp_iterations_distinct_tiled.cu", "distinct_tiled_kernel.py:480",
          launches["k7_bfloat16"], errs["k7_bfloat16"], *times["k7_bfloat16"]),
+        ("k8", "K8 fused_full_solve_packed", "full_solve_packed.cu",
+         "packed_kernel.py:276", launches["k8"], errs["k8"], k8_ms,
+         k8_plain_ms),
     ]
     table = [{"name": name, "route": "cuda",
               "source": "pqp_for_mpc_tpu_torch/csrc/" + src,
@@ -851,7 +1141,7 @@ def main() -> int:
     # K7's float32 mode (same source, same wrapper) is not on the path:
     # solve_mixed's float32 phase on 3-D Qd is the plain solve, as in the
     # JAX package.  Its numbers from this run sit beside the bf16 row.
-    table[-1]["float32_mode"] = {
+    table[-2]["float32_mode"] = {
         "launches": launches["k7_float32"],
         "max_abs_err": errs["k7_float32"][0], "ms": times["k7_float32"][0],
         "plain_ms": times["k7_float32"][1], **bounds["k7_float32"]}

@@ -33,3 +33,5 @@ from pqp_for_mpc_tpu_torch.ops.distinct_kernel import (  # noqa: F401
     solve_fused_distinct)
 from pqp_for_mpc_tpu_torch.ops.distinct_tiled_kernel import (  # noqa: F401
     solve_fused_distinct_tiled)
+from pqp_for_mpc_tpu_torch.ops.packed_kernel import (  # noqa: F401
+    solve_fused_packed)

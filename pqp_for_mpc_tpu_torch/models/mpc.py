@@ -19,8 +19,9 @@ with box input bounds and slew-rate bounds contributing the reference's
 The build is the JAX package's float64 NumPy host build, copied; only the
 final cast differs (float32 tensors on a given device).
 :class:`MPCController` runs the receding-horizon loop through
-:func:`~pqp_for_mpc_tpu_torch.routing.solve_auto`.  The stage-wise backend
-and the compiled rollout are later slices of the port.
+:func:`~pqp_for_mpc_tpu_torch.routing.solve_auto`: ``rollout`` propagates
+the plant on the host, ``rollout_jit`` keeps the whole loop on the
+controller's device.  The stage-wise backend is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -535,6 +536,8 @@ class MPCController:
                                    theta_floor=self.cfg.theta_floor,
                                    precision=self.cfg.precision)
         self._Y = None
+        # (steps, preview?, w_seq?) -> rollout_jit's trajectory buffers
+        self._rollout_fns = {}
 
     def reset(self):
         self._Y = None
@@ -573,19 +576,8 @@ class MPCController:
         nd = self.spec.plant.n_dist
         D = (torch.zeros(H * nd, dtype=torch.float32, device=self.device)
              if d_seq is None else self._as_f32(d_seq).reshape(-1))
-        data = self.data
-        if u_prev is not None:
-            # u_prev enters only the slew-row bounds additively
-            # ([box+, box-, slew+, slew-]); data.Kp already carries
-            # spec.u_prev, so apply only the delta from it
-            M = self._Hv * nu
-            up = self._as_f32(u_prev).reshape(-1) - self._u_base
-            e1u = torch.zeros(M, dtype=torch.float32, device=self.device)
-            e1u[:nu] = up
-            Kp = data.Kp.clone()
-            Kp[2 * M:3 * M] += e1u
-            Kp[3 * M:4 * M] -= e1u
-            data = dataclasses.replace(data, Kp=Kp)
+        data = (self.data if u_prev is None
+                else self._data_with_uprev(self._as_f32(u_prev)))
         primal = data.assemble(x=self._as_f32(x), D=D, Qp=self.Qp)
         dual = dualize_forcing(self._geom, primal.Fp, primal.Mp, primal.Kp,
                                precision=self.cfg.precision)
@@ -605,6 +597,20 @@ class MPCController:
         u0 = res.U[:nu]
         return u0, res
 
+    def _data_with_uprev(self, u_prev: torch.Tensor) -> CondensedMPCData:
+        """The condensed data with the slew-row bounds moved to ``u_prev``
+        (a tensor on the controller's device).  ``u_prev`` enters only those
+        rows, additively ([box+, box-, slew+, slew-]); ``data.Kp`` already
+        carries ``spec.u_prev``, so only the delta from it is applied, and
+        any output rows after the 4M input rows are kept."""
+        M, nu = self._Hv * self.spec.plant.n_input, self.spec.plant.n_input
+        e1u = torch.zeros(M, dtype=torch.float32, device=self.device)
+        e1u[:nu] = u_prev.reshape(-1) - self._u_base
+        Kp = self.data.Kp.clone()
+        Kp[2 * M:3 * M] += e1u
+        Kp[3 * M:4 * M] -= e1u
+        return dataclasses.replace(self.data, Kp=Kp)
+
     def _as_f32(self, a) -> torch.Tensor:
         """``a`` (array-like or tensor) as float32 on the controller's
         device."""
@@ -612,21 +618,104 @@ class MPCController:
             return a.to(device=self.device, dtype=torch.float32)
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
+    def _check_lti_rollout(self):
+        # The closed-loop propagation x+ = A x + B u0 reuses one (A, B); an
+        # LTV prediction model has no single pair
+        if np.asarray(self.spec.plant.A).ndim == 3:
+            raise NotImplementedError(
+                "closed-loop rollout needs an LTI plant; for LTV loops "
+                "call step() per control step")
+
     def rollout_jit(self, x0, steps: int, d_forecast=None, w_seq=None):
-        raise NotImplementedError(
-            "the compiled closed loop is not ported yet (ROADMAP queue 1, "
-            "item 6): use rollout()")
+        """The closed loop kept on the controller's device: per step the
+        slew-row ``Kp`` update, ``assemble``, ``dualize_forcing``,
+        ``solve_auto`` (warm, ``retry_cold`` honoured) and
+        ``x+ = A x + B u0 (+ E d + w)`` in float32, the trajectories written
+        into buffers preallocated on the device and brought to the host
+        once at the end.  The JAX package compiles this loop into one
+        ``lax.scan``; here it is a Python loop whose only host syncs are
+        the solver's own per-check ``all(done)`` tests (and, with
+        ``retry_cold``, its per-step "did every lane certify").  No CUDA
+        graph: that loop is data-dependent.  ``self._rollout_fns`` caches
+        the buffers per ``(steps, preview, w_seq)``.
+
+        ``d_forecast`` — optional known-disturbance preview ``(steps + H,
+        nd)``: step t solves with the window ``d_forecast[t:t+H]`` and the
+        plant moves with ``d_forecast[t]``.  ``w_seq`` — optional
+        ``(steps, ns)`` additive process disturbance on the true state
+        update, never seen by the solver.
+
+        Returns a dict of NumPy trajectories: ``x (steps, ns)``, ``u
+        (steps, nu)``, ``iters (steps,)`` and ``converged (steps,)``.
+        """
+        self._check_lti_rollout()
+        spec, cfg, dev = self.spec, self.cfg, self.device
+        plant = spec.plant
+        H, nu, nd, ns = (spec.horizon, plant.n_input, plant.n_dist,
+                         plant.n_state)
+        f32 = torch.float32
+        key = (steps, d_forecast is not None, w_seq is not None)
+        traj = self._rollout_fns.get(key)
+        if traj is None:
+            traj = self._rollout_fns[key] = dict(
+                x=torch.empty((steps, ns), dtype=f32, device=dev),
+                u=torch.empty((steps, nu), dtype=f32, device=dev),
+                iters=torch.empty(steps, dtype=torch.int32, device=dev),
+                converged=torch.empty(steps, dtype=torch.bool, device=dev))
+        ws = None if w_seq is None else self._as_f32(w_seq).reshape(steps, ns)
+        wins = None
+        if d_forecast is not None:
+            df = self._as_f32(d_forecast).reshape(-1, nd)
+            if df.shape[0] < steps + H:
+                raise ValueError(f"d_forecast needs {steps + H} rows "
+                                 f"(steps + horizon), got {df.shape[0]}")
+            # per-step preview windows (steps, H, nd), gathered on the device
+            idx = (torch.arange(steps, device=dev)[:, None]
+                   + torch.arange(H, device=dev)[None, :])
+            wins = df[idx]
+        A, Bm, Em = (self._as_f32(m) for m in (plant.A, plant.B, plant.E))
+        D0 = torch.zeros(H * nd, dtype=f32, device=dev)
+        Y_cold = torch.full((self.data.n_con, 1), cfg.y0, dtype=f32,
+                            device=dev)
+        x = self._as_f32(x0).reshape(ns)
+        u_prev = torch.zeros(nu, dtype=f32, device=dev)
+        Y = Y_cold
+        for t in range(steps):
+            win = None if wins is None else wins[t]
+            primal = self._data_with_uprev(u_prev).assemble(
+                x=x, D=D0 if win is None else win.reshape(-1), Qp=self.Qp)
+            dual = dualize_forcing(self._geom, primal.Fp, primal.Mp,
+                                   primal.Kp, precision=cfg.precision)
+            res = solve_auto(primal, dual,
+                             Y0=torch.clamp(Y, min=self.warm_start_floor),
+                             cfg=cfg, retry_cold=self.retry_cold)
+            u0 = res.U[:nu, 0]
+            xn = A @ x + Bm @ u0
+            if win is not None:
+                xn = xn + Em @ win[0]
+            if ws is not None:
+                xn = xn + ws[t]
+            # the next warm start honours the controller's mode
+            if self.warm_start == "shift":
+                Y = self._shift_multipliers(res.Y)
+            elif self.warm_start:
+                Y = res.Y
+            else:
+                Y = Y_cold
+            traj["x"][t] = xn
+            traj["u"][t] = u0
+            traj["iters"][t] = res.iters[0]
+            traj["converged"][t] = res.converged[0]
+            x, u_prev = xn, u0
+        return {k: v.cpu().numpy() for k, v in traj.items()}
 
     def rollout(self, x0, steps: int, d_fn=None, noise=None):
         """Closed-loop simulation for ``steps`` steps (the plant propagates
         in NumPy).  Returns a dict of NumPy trajectories: ``x``, ``u``,
         ``iters`` (per step, max over the batch) and ``converged`` (per
         step, all lanes certified)."""
+        self._check_lti_rollout()
         plant = self.spec.plant
-        if np.asarray(plant.A).ndim == 3:
-            raise NotImplementedError(
-                "closed-loop rollout needs an LTI plant; for LTV loops "
-                "call step() per control step")
         x = np.asarray(x0, np.float32)
         u_prev = np.zeros(plant.n_input, np.float32)
         xs, us, iters, conv = [], [], [], []

@@ -55,6 +55,9 @@ SIGNATURES = {
     # eaj, erj, strict, den_eps, gap_comp, stream
     "full_solve_f32": [_P] * 6 + [_P, _I] * 8 + [_P] * 4 + [_I] * 6
     + [_F, _F, _I, _F, _I, _P],
+    # the arguments of full_solve_f32
+    "full_solve_packed_f32": [_P] * 6 + [_P, _I] * 8 + [_P] * 4 + [_I] * 6
+    + [_F, _F, _I, _F, _I, _P],
     # q, q_bf16, theta, fdn, fdp, fd_lane, y, y_out, y_tmp, n, B,
     # num_iters, den_eps, stream
     "pqp_iterations_tiled": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,

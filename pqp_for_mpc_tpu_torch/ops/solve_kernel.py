@@ -223,19 +223,21 @@ fused_full_solve.launches = 0
 
 
 def fused_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
-                 cfg: Optional[SolverConfig] = None):
+                 cfg: Optional[SolverConfig] = None,
+                 name: str = "solve_fused"):
     """The arguments :func:`solve_fused` hands the kernel for this problem:
     ``(args, kwargs)`` for :func:`fused_full_solve` or, identically, for
-    :func:`fused_full_solve_reference`.  Panels shared by every lane stay
-    shared (stride-0 views)."""
+    :func:`fused_full_solve_reference` (and the packed kernel K8, whose
+    entry point ``name`` the errors then give).  Panels shared by every
+    lane stay shared (stride-0 views)."""
     from pqp_for_mpc_tpu_torch.solver import _as2d
 
     cfg = cfg or SolverConfig()
     if dual.Qd.dim() != 2:
-        raise ValueError("solve_fused requires shared Qd geometry")
+        raise ValueError(f"{name} requires shared Qd geometry")
     if dual.Qdn_theta is None:
         raise ValueError(
-            "solve_fused holds the MATERIALIZED Qd splits in shared memory "
+            f"{name} holds the MATERIALIZED Qd splits in shared memory "
             "— rebuild the dual with dualize(materialize_splits=True), or "
             "use solve_batched (it never needs them)")
     N = dual.n_con

@@ -20,9 +20,9 @@ versions' matrix products.  With acceleration the iteration bar holds on
 99% of lanes: the accel step is kept when f(Y_new) <= f(Y), two float32
 values that agree to rounding near the optimum, so two correct summation
 orders can take different steps and a rare lane's trajectory (never its
-state or U bar) drifts further.  K5 and K6 are held like K1 and K4, K7
-like K3.  Every kernel whose reductions run in a fixed order repeats every
-bit on a second launch; the tests of K4–K7 check it.
+state or U bar) drifts further.  K5, K6 and K8 are held like K1 and K4,
+K7 like K3.  Every kernel whose reductions run in a fixed order repeats
+every bit on a second launch; the tests of K4–K8 check it.
 """
 
 import dataclasses
@@ -37,8 +37,8 @@ from pqp_for_mpc_tpu_torch.config import MPC_CONFIG
 from pqp_for_mpc_tpu_torch.models import MPCSpec, condense, double_integrator
 from pqp_for_mpc_tpu_torch.config import SolverConfig
 from pqp_for_mpc_tpu_torch.ops import (distinct_kernel, distinct_tiled_kernel,
-                                       kernels, solve_kernel, tiled_kernel,
-                                       tiled_solve_kernel)
+                                       kernels, packed_kernel, solve_kernel,
+                                       tiled_kernel, tiled_solve_kernel)
 from pqp_for_mpc_tpu_torch.problem import PrimalQP
 
 pytestmark = pytest.mark.cuda
@@ -422,3 +422,104 @@ def test_distinct_routes_launch_their_kernels(dev):
     torch.cuda.synchronize()
     assert k7["bfloat16"] > bf16 and k7["float32"] == f32
     assert bool(res.converged.all())
+
+
+K8_CASES = {
+    "n28": (SMOKE, 7, 4096, False),
+    "n28_accel": (dataclasses.replace(SMOKE, check_every=4, accel_every=4),
+                  7, 4096, False),
+    "n28_per_lane_kp": (dataclasses.replace(
+        SMOKE, gap_from_complementarity=False), 7, 4096, True),
+    "n64": (SMOKE, 16, 2048, False),
+    "n64_accel": (dataclasses.replace(MPC_CONFIG,
+                                      feas_from_dual_gradient=False),
+                  16, 2048, False),
+    # n_pad 24 and 40: G = 5 and 3, 6 and 10 threads per instance, a
+    # ragged last packed column
+    "n24": (SMOKE, 6, 1001, False),
+    "n40": (SMOKE, 10, 999, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K8_CASES))
+def test_k8_kernel_matches_plain(dev, case):
+    cfg, H, B, per_lane_kp = K8_CASES[case]
+    primal, dual = _workload(dev, H, B, per_lane_kp)
+    args, kw = solve_kernel.fused_inputs(primal, dual, None, cfg)
+    k8 = packed_kernel.fused_full_solve_packed
+    before = k8.launches
+    out = k8(*args, **kw)
+    y_p, u_p, it_p, st_p = packed_kernel.fused_full_solve_packed_reference(
+        *args, **kw)
+    torch.cuda.synchronize()
+    assert k8.launches == before + 1
+    y, u, it, st = out
+    assert set(st.unique().tolist()) <= {0, 1, 2}
+    same = st == st_p
+    if cfg.accel_every and H == 16:
+        # accelerated H=16 lanes: the accel step's projection can make an
+        # absorbing zero in one summation order and not the other, so a
+        # lane stalls (state 2) on one side and certifies on the other; on
+        # an H100 that happened on 8 of 2,048 lanes of this draw (and K1
+        # against its plain version on 5), every one a stall on one side
+        assert float(same.float().mean()) >= 0.995
+        assert bool(((st == 2) | (st_p == 2))[~same].all())
+    else:
+        assert bool(same.all())
+    # the iteration bar on the lanes that end alike: all of them without
+    # acceleration, 99% with it at H=7 (as K1), 90% at H=16, where the
+    # accel drift is wider (on an H100: 95.8% of this draw's 2,048 lanes,
+    # 99.1% of 4,096 lanes at r = 0; tests/test_torch_packed.py holds 85%
+    # against the JAX package for the same reason)
+    within = ((it - it_p).abs() <= _bar(it_p, cfg.check_every))[same]
+    share = 1.0 if not cfg.accel_every else (0.90 if H == 16 else 0.99)
+    assert float(within.float().mean()) >= share
+    scale = max(1.0, float(u_p.abs().max()))
+    assert float((u - u_p)[:, same].abs().max()) <= 5e-3 * scale
+    again = k8(*args, **kw)
+    assert all(bool((a == b).all()) for a, b in zip(out, again))
+
+
+def test_solve_fused_packed_gives_k1_verdicts(dev):
+    primal, dual = _workload(dev, 7, 1 << 14)
+    k8 = packed_kernel.solve_fused_packed(primal, dual, cfg=SMOKE)
+    k1 = solve_kernel.solve_fused(primal, dual, cfg=SMOKE)
+    assert bool((k8.converged == k1.converged).all())
+    assert float(k8.converged.float().mean()) >= 0.99
+    assert float((k8.U - k1.U).abs().max()) <= 5e-3 * max(
+        1.0, float(k1.U.abs().max()))
+
+
+def test_k8_refuses_what_it_does_not_take(dev):
+    big = torch.ones(130, 130, device=dev)
+    with pytest.raises(ValueError, match="does not pack"):
+        packed_kernel.fused_full_solve_packed(
+            big, big, big, torch.ones(130, 4, device=dev),
+            torch.eye(4, device=dev), torch.eye(4, device=dev),
+            torch.ones(4, device=dev), torch.ones(130, device=dev),
+            torch.ones(130, device=dev), torch.ones(130, device=dev),
+            torch.ones(130, device=dev), torch.zeros(1, device=dev),
+            torch.zeros(1, device=dev), torch.ones(130, 4, device=dev),
+            max_iters=8, check_every=8)
+    n, m = 64, 3000
+    sq = torch.eye(n, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        packed_kernel.fused_full_solve_packed(
+            sq, sq, sq, torch.zeros(n, m, device=dev),
+            torch.eye(m, device=dev), torch.eye(m, device=dev),
+            torch.zeros(m, device=dev), torch.ones(n, device=dev),
+            torch.ones(n, device=dev), torch.ones(n, device=dev),
+            torch.ones(n, device=dev), torch.zeros(1, device=dev),
+            torch.zeros(1, device=dev), torch.ones(n, 4, device=dev),
+            max_iters=8, check_every=8)
+
+
+def test_rollout_jit_on_the_card_matches_rollout(dev):
+    from pqp_for_mpc_tpu_torch.models import MPCController
+    spec = MPCSpec(double_integrator(), horizon=16, Qy=np.eye(1),
+                   R=0.05 * np.eye(1), r=np.zeros(1), u_min=-np.ones(1),
+                   u_max=np.ones(1), du_max=0.5 * np.ones(1))
+    a = MPCController(spec, device=dev).rollout_jit([2.0, 0.0], 30)
+    b = MPCController(spec, device=dev).rollout([2.0, 0.0], 30)
+    assert a["converged"].all() and b["converged"].all()
+    np.testing.assert_allclose(a["u"], b["u"], atol=5e-3)
