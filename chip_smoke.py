@@ -37,21 +37,31 @@ at full size and times them:
   ``rollout --jit`` and ``serve``.
 
 Each kernel is held against its plain version at the shapes its path gives
-it.  The ``launches`` of the kernel table are those of each path's own
-drive, counted from 0.  K7's row is its bf16 mode, the one its path runs;
-its float32 mode is held and timed too, and sits in the row as
-``float32_mode``.  The resident distinct route is held to the share of
-lanes its benchmark configuration certifies in both packages
-(:data:`DISTINCT_RESIDENT_CERTIFIED`) and to the plain solve's verdicts,
-and prints the lanes it leaves uncertified.  Each kernel's ``bound_ms`` is
+it.  The ``launches`` of the kernel table are those of ONE call of each
+path's route, counted from 0.  K5's cluster plan (``k5_plan`` and the
+card's pick) and K3's bf16 tile plans are printed; K3 bf16 is held at the
+streamed workload's shape and at the H=64 loop's single lane, K5 with its
+rows resident (N = 400) and streamed (N = 1,024), each also against its own
+relaunch, bit for bit.  The times of the kernels redesigned for Hopper (K5,
+K3 bf16) under their previous designs are printed on a line of their own
+(``earlier_times``), quoted from PERF.md, not measured here.  K7's row
+is its bf16 mode, the one its path runs, timed in two windows in turns
+with its plain version (``ms_windows``); its float32 mode is held and
+timed too, and sits in the row as ``float32_mode``.  The resident
+distinct route is held to the share of lanes its benchmark configuration
+certifies in both packages (:data:`DISTINCT_RESIDENT_CERTIFIED`) and to the
+plain solve's verdicts, and prints the lanes it leaves uncertified.  Each
+kernel's ``bound_ms`` is
 the least time an
 H100 SXM could take for that call — the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
 (counted from this run's iterations) over 67 TFLOP/s in float32 or
-989 TFLOP/s in bf16 — and ``bound_by`` names the term.  Where a kernel's
-matrices exceed the 50 MB L2, the time its design takes to re-read them on
-every pass (its stream floor, not a bound of the function) is printed on
-the ``stream_floors`` line.  No single PyTorch call computes any of these
+989 TFLOP/s in bf16 — and ``bound_by`` names the term.  The floors of the
+designs (not bounds of the function) are printed on the ``stream_floors``
+line: for K4, K6 and K7 f32 the time to re-read their matrices past the
+50 MB L2 on every pass; for K3 the time to read Q once per update at the
+HBM rate; for K5 its inputs once from HBM and its resident rows' reads at
+the aggregate shared-memory rate.  No single PyTorch call computes any of these
 functions, so ``library_ms`` is null.  Every phase prints one JSON line and
 raises on failure.  The last two lines are the kernel table
 (``{"kernels": [...]}``) and the result line (``{"ok": true, "device":
@@ -112,6 +122,13 @@ CLI_SEED = 3
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32 on the
 #: CUDA cores and bf16 on the tensor cores, FLOP/s; and the L2 size
 HBM_BPS, F32_FLOPS, BF16_FLOPS, L2_BYTES = 3.35e12, 67e12, 989e12, 50e6
+#: aggregate shared-memory bandwidth of an H100 SXM: 132 SMs x 128 bytes
+#: per clock at the 1.98 GHz boost clock (the K5 design's read floor)
+SMEM_BPS = 132 * 128 * 1.98e9
+#: the redesigned kernels' times under their previous designs, quoted
+#: from PERF.md section 6 (PR 4's final call on an H100 80GB HBM3, 700 W):
+#: printed on a line of their own, never in the kernel table
+EARLIER_MS = {"k5": 4589.51, "k3_bfloat16": 6.925}
 
 
 def emit(phase: str, **fields) -> None:
@@ -515,8 +532,6 @@ def main() -> int:
 
     # -- phase 4: the main path at full size -----------------------------
     primal, dual = workload(B_MAIN, dev)
-    kernels.fused_pqp_iterations.launches = 0
-    solve_kernel.fused_full_solve.launches = 0
     route = pqp.route_solve(dual.n_con, B_MAIN, False, smoke_cfg,
                             m_dim=primal.n_var, platform="cuda")
     require(route == "fused", f"cold B=2^22 routed to {route!r}")
@@ -527,9 +542,18 @@ def main() -> int:
         "plain": lambda: pqp.solve_batched(primal, dual, cfg=smoke_cfg),
     }
     main_rows = {}
+    # the main path's launches over ONE call of each route: every count set
+    # to 0 just before the route's first call and read just after it
+    launches = {}
     for name, fn in runs.items():
+        kernels.fused_pqp_iterations.launches = 0
+        solve_kernel.fused_full_solve.launches = 0
         res = fn()
         torch.cuda.synchronize()
+        if name == "k1_route":
+            launches["k1"] = solve_kernel.fused_full_solve.launches
+        elif name == "k2_route":
+            launches["k2"] = kernels.fused_pqp_iterations.launches
         conv = float(res.converged.float().mean())
         ms = cuda_ms(fn, reps=2)
         main_rows[name] = dict(
@@ -539,9 +563,6 @@ def main() -> int:
         emit("main_path", engine=name, batch=B_MAIN, **main_rows[name])
         require(conv >= 0.99, f"{name}: only {conv:.4f} converged")
         del res
-    # the main path's launches, read before any later phase launches more
-    launches = {"k1": solve_kernel.fused_full_solve.launches,
-                "k2": kernels.fused_pqp_iterations.launches}
     emit("main_path_launches", **launches)
     require(launches["k1"] > 0, "solve_auto did not launch K1")
     require(launches["k2"] > 0,
@@ -718,17 +739,34 @@ def main() -> int:
     streams = {mode: tiled_kernel.streamed_matrix(ld.Qd, ld.theta, mode)
                for mode in ("float32", "bfloat16")}
     k3_kw = dict(num_iters=big_cfg.check_every, den_eps=big_cfg.den_eps)
-    for mode, (Q, th) in streams.items():
-        k3_args = (Q, th, ld.Fdn, ld.Fdp, Y3)
-        cmp = k3_parity(
-            tiled_kernel.streamed_pqp_iterations(*k3_args, **k3_kw),
-            tiled_kernel.streamed_pqp_iterations_reference(*k3_args, **k3_kw),
-            rtol=1e-5 if mode == "float32" else 1e-3)
-        emit("k3_vs_plain", mode=mode, n=N_BIG, batch=B_BIG,
+    # the bf16 mode's tile plans: the streamed workload and the H=64 loop
+    emit("k3_bf16_plan", streamed=tiled_kernel.k3_bf16_plan(N_BIG, B_BIG),
+         h64_loop=tiled_kernel.k3_bf16_plan(256, 1))
+    k3 = tiled_kernel.streamed_pqp_iterations
+    k3_plain = tiled_kernel.streamed_pqp_iterations_reference
+    # the H=64 loop's geometry (N = 256) at its single lane: the bf16 mode's
+    # small-tile instantiation, staged entry by entry
+    _, d64 = workload(1, dev, horizon=64, r=0.0)
+    Y64 = torch.as_tensor(np.random.default_rng(6).uniform(
+        0.5, 2.0, (d64.n_con, 1)).astype(np.float32), device=dev)
+    k3_cases = [(mode, N_BIG, B_BIG, (Q, th, ld.Fdn, ld.Fdp, Y3))
+                for mode, (Q, th) in streams.items()]
+    k3_cases.append(("bfloat16", d64.n_con, 1, (
+        *tiled_kernel.streamed_matrix(d64.Qd, d64.theta, "bfloat16"),
+        d64.Fdn, d64.Fdp, Y64)))
+    for mode, n, batch, k3_args in k3_cases:
+        got = k3(*k3_args, **k3_kw)
+        cmp = k3_parity(got, k3_plain(*k3_args, **k3_kw),
+                        rtol=1e-5 if mode == "float32" else 1e-3)
+        cmp["repeats_bits"] = bool((k3(*k3_args, **k3_kw) == got).all())
+        emit("k3_vs_plain", mode=mode, n=n, batch=batch,
              num_iters=big_cfg.check_every, **cmp)
-        require(cmp["ok"], f"K3 ({mode}) disagrees with its plain version: "
-                           f"{cmp}")
-        errs["k3_" + mode] = [cmp["max_abs_err"]]
+        require(cmp["ok"], f"K3 ({mode}) disagrees with its plain version "
+                           f"at N={n}, B={batch}: {cmp}")
+        require(cmp["repeats_bits"],
+                f"K3 ({mode}) at N={n}, B={batch} did not repeat its bits")
+        errs.setdefault("k3_" + mode, []).append(cmp["max_abs_err"])
+    del d64, Y64, k3_cases
     t_args, t_kw = tiled_solve_kernel.tiled_inputs(lp, ld, None, big_cfg)
     k4_plain_t0 = time.perf_counter()
     out_p = tiled_solve_kernel.fused_full_solve_tiled_reference(*t_args,
@@ -804,9 +842,9 @@ def main() -> int:
             stored_bytes(Q, th, ld.Fdn, ld.Fdp, Y3), 4 * Y3.numel(),
             k3_kw["num_iters"] * 4.0 * N_BIG * N_BIG * B_BIG,
             F32_FLOPS if mode == "float32" else BF16_FLOPS)
-        if q_bytes > L2_BYTES:
-            floors["k3_" + mode] = stream_floor_ms(k3_kw["num_iters"]
-                                                   * q_bytes)
+        # f32: Q past the L2, re-read from HBM each update; bf16: Q (33.5
+        # MB) fits the L2, so Q per update at the HBM rate is an upper floor
+        floors["k3_" + mode] = stream_floor_ms(k3_kw["num_iters"] * q_bytes)
     # K4 streams its matrices once per pass for every lane together:
     # rounds of check_every updates, a check (Qd_hat, Gp twice, Qp,
     # Qp^-1) and the accel step (three Qd_hat passes)
@@ -872,15 +910,49 @@ def main() -> int:
     dp = distinct_workload(B_DR, M_DR, N_DR, dev)
     dd = pqp.dualize_distinct(dp, theta_floor=dr_cfg.theta_floor)
     d_args, d_kw = distinct_kernel.distinct_inputs(dp, dd, None, dr_cfg)
-    out_k5 = distinct_kernel.fused_full_solve_distinct(*d_args, **d_kw)
-    out_p = distinct_kernel.fused_full_solve_distinct_reference(*d_args,
-                                                                **d_kw)
+    k5_plan = distinct_kernel.k5_plan(N_DR, M_DR)
+    pick5 = distinct_kernel.card_cluster(N_DR, M_DR, B_DR,
+                                         k5_plan["resident"])
+    emit("k5_plan", plan=k5_plan, card_pick=pick5)
+    require(k5_plan["resident"], f"K5 does not keep N={N_DR} resident")
+    require(pick5["blocks_per_instance"] in k5_plan["sizes"],
+            "K5's cluster size is not one of the plan's")
+    k5 = distinct_kernel.fused_full_solve_distinct
+    k5_plain = distinct_kernel.fused_full_solve_distinct_reference
+    out_k5 = k5(*d_args, **d_kw)
+    out_p = k5_plain(*d_args, **d_kw)
     torch.cuda.synchronize()
     k5_cmp = solve_parity(out_k5, out_p, dr_cfg.check_every)
-    emit("k5_vs_plain", n=N_DR, m=M_DR, batch=B_DR, **k5_cmp)
+    k5_cmp["repeats_bits"] = all(bool((a == b).all()) for a, b in zip(
+        k5(*d_args, **d_kw), out_k5))
+    emit("k5_vs_plain", n=N_DR, m=M_DR, batch=B_DR, resident=True, **k5_cmp)
     require(k5_cmp["ok"], f"K5 disagrees with its plain version: {k5_cmp}")
+    require(k5_cmp["repeats_bits"], "K5 (resident) did not repeat its bits")
     errs["k5"] = [k5_cmp["max_abs_err"]]
     del out_p
+    # past the cluster's capacity: the same body streams its rows of Qd
+    # (tests/test_torch_cuda.py's n1024_m256_accel case)
+    n5, m5 = 1024, 256
+    require(not distinct_kernel.k5_plan(n5, m5)["resident"],
+            f"K5 keeps N={n5} resident")
+    c5_cfg = dataclasses.replace(dr_cfg, accel_every=8)
+    p5 = distinct_workload(3, m5, n5, dev)
+    c5_args, c5_kw = distinct_kernel.distinct_inputs(
+        p5, pqp.dualize_distinct(p5, theta_floor=c5_cfg.theta_floor), None,
+        c5_cfg)
+    got = k5(*c5_args, **c5_kw)
+    c5_cmp = solve_parity(got, k5_plain(*c5_args, **c5_kw),
+                          c5_cfg.check_every, accel=True)
+    c5_cmp["repeats_bits"] = all(bool((a == b).all()) for a, b in zip(
+        k5(*c5_args, **c5_kw), got))
+    emit("k5_vs_plain", n=n5, m=m5, batch=3, resident=False,
+         accel_every=c5_cfg.accel_every, **c5_cmp)
+    require(c5_cmp["ok"], f"K5 (streamed rows) disagrees with its plain "
+                          f"version: {c5_cmp}")
+    require(c5_cmp["repeats_bits"], "K5 (streamed rows) did not repeat its "
+                                    "bits")
+    errs["k5"].append(c5_cmp["max_abs_err"])
+    del p5, c5_args, got
     route = pqp.route_solve(N_DR, B_DR, True, dr_cfg, m_dim=M_DR,
                             platform="cuda")
     require(route == "fused_distinct",
@@ -930,13 +1002,19 @@ def main() -> int:
             *d_args, **d_kw), 1, warmup=False),
         cuda_ms(lambda: distinct_kernel.fused_full_solve_distinct_reference(
             *d_args, **d_kw), 1, warmup=False))}
-    k5_flops, k5_stream = solve_work(
+    # the design reads its resident Qd rows from shared memory: n^2 floats
+    # per update and per check, 3 n^2 per accel step (Gp, Qp and Qp^-1
+    # come from L2 at the check cadence)
+    k5_flops, k5_smem = solve_work(
         N_DR, M_DR, out_k5[2], dr_cfg.check_every, dr_cfg.accel_every,
-        8.0 * N_DR ** 2, 4.0 * (N_DR ** 2 + 2 * N_DR * M_DR + 2 * M_DR ** 2),
-        12.0 * N_DR ** 2)
+        4.0 * N_DR ** 2, 4.0 * N_DR ** 2, 12.0 * N_DR ** 2)
     bounds["k5"] = bound(stored_bytes(*d_args), sum(
         t.numel() * t.element_size() for t in out_k5), k5_flops, F32_FLOPS)
-    floors["k5"] = stream_floor_ms(k5_stream)
+    # its inputs read once from HBM (Qd, Gp, Qp, Qp^-1, the panels and the
+    # splits' diagonals; the splits themselves are never read)
+    floors["k5_inputs_once"] = stream_floor_ms(
+        stored_bytes(*d_args[2:]) + 8.0 * B_DR * N_DR)
+    floors["k5_shared_memory"] = k5_smem / SMEM_BPS * 1e3
     del dp, dd, d_args, out_k5
     torch.cuda.empty_cache()
 
@@ -1016,11 +1094,17 @@ def main() -> int:
         emit("distinct_streamed_path", engine=name, n=N_DS, m=M_DS,
              batch=B_DS, seconds_per_batch=ms / 1e3, nvidia_smi=smi,
              **ds_rows[name])
+    k7_windows = {}
     for mode, (Q, th) in k7_streams.items():
         k7_args = (Q, th, sd.Fdn, sd.Fdp, Y7)
-        times["k7_" + mode] = (cuda_ms(lambda: k7(*k7_args, **k7_kw), 5),
-                               cuda_ms(lambda: k7_plain(*k7_args, **k7_kw),
-                                       5))
+        # two five-launch windows each, in turns: kernel, plain, kernel,
+        # plain
+        w = [cuda_ms(lambda: k7(*k7_args, **k7_kw), 5),
+             cuda_ms(lambda: k7_plain(*k7_args, **k7_kw), 5),
+             cuda_ms(lambda: k7(*k7_args, **k7_kw), 5),
+             cuda_ms(lambda: k7_plain(*k7_args, **k7_kw), 5)]
+        k7_windows[mode] = dict(kernel_ms=w[0::2], plain_ms=w[1::2])
+        times["k7_" + mode] = ((w[0] + w[2]) / 2, (w[1] + w[3]) / 2)
         q_bytes = Q.numel() * Q.element_size()
         bounds["k7_" + mode] = bound(
             stored_bytes(Q, th, sd.Fdn, sd.Fdp, Y7), 4 * Y7.numel(),
@@ -1040,12 +1124,13 @@ def main() -> int:
         t.numel() * t.element_size() for t in out_k6), k6_flops, F32_FLOPS)
     floors["k6"] = stream_floor_ms(k6_stream)
     emit("distinct_kernel_times", nvidia_smi=smi,
-         k7_num_iters=ds_cfg.check_every,
+         k7_num_iters=ds_cfg.check_every, k7_windows=k7_windows,
          **{f"{k}_ms": v[0] for k, v in times.items()},
          **{f"{k}_plain_ms": v[1] for k, v in times.items()})
-    # the floors of the designs that re-read matrices past the L2 each pass
-    # (K5 both materialized splits per update, the others one matrix), at
-    # this run's iterations; the kernel table's bound_ms is the function's
+    # the floors of the designs at this run's iterations: K4, K6, K7 f32
+    # re-read matrices past the L2 each pass; K3 bf16 reads Q per update;
+    # K5 reads its inputs once from HBM and its rows from shared memory.
+    # The kernel table's bound_ms is the function's
     emit("stream_floors", **{f"{k}_ms": v for k, v in floors.items()})
     del sp, sd, sd_free, k7_streams, Y7, s_args, out_k6
     torch.cuda.empty_cache()
@@ -1138,6 +1223,9 @@ def main() -> int:
               "max_abs_err": max(err), "ms": ms, "plain_ms": plain_ms,
               **bounds[key]}
              for key, name, src, tpu, n, err, ms, plain_ms in rows]
+    for row, (key, *_rest) in zip(table, rows):
+        if key == "k7_bfloat16":
+            row["ms_windows"] = k7_windows["bfloat16"]["kernel_ms"]
     # K7's float32 mode (same source, same wrapper) is not on the path:
     # solve_mixed's float32 phase on 3-D Qd is the plain solve, as in the
     # JAX package.  Its numbers from this run sit beside the bf16 row.
@@ -1145,6 +1233,10 @@ def main() -> int:
         "launches": launches["k7_float32"],
         "max_abs_err": errs["k7_float32"][0], "ms": times["k7_float32"][0],
         "plain_ms": times["k7_float32"][1], **bounds["k7_float32"]}
+    emit("earlier_times", quoted_not_measured=True,
+         source="PERF.md section 6: the previous designs' times, PR 4's "
+                "final call, NVIDIA H100 80GB HBM3, 700.00 W",
+         **{f"{k}_ms": v for k, v in EARLIER_MS.items()})
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-// Helpers shared by the distinct-geometry kernels (full_solve_distinct.cu,
-// full_solve_distinct_tiled.cu, pqp_iterations_distinct_tiled.cu).
+// Helpers shared by the distinct-geometry kernels (cluster_solve.cuh for
+// full_solve_distinct.cu and full_solve_distinct_tiled.cu,
+// pqp_iterations_distinct_tiled.cu).
 //
 // Layout: every matrix is row-major with a leading instance axis; every
 // per-instance vector is instance-major, element (b, i) at v[b * len + i]
@@ -59,42 +60,6 @@ __device__ __forceinline__ float warp_row_dot(const float* __restrict__ row,
   return warp_sum(acc);
 }
 
-// The two dots of rows a and b with x in one pass (the update's num and den
-// rows of the materialized splits).
-__device__ __forceinline__ void warp_row_dot2(const float* __restrict__ a,
-                                              const float* __restrict__ b,
-                                              const float* __restrict__ x,
-                                              int n, bool vec, float& sa,
-                                              float& sb) {
-  const int lane = threadIdx.x & 31;
-  float acc_a = 0.f, acc_b = 0.f;
-  if (vec) {
-    const float4* a4 = reinterpret_cast<const float4*>(a);
-    const float4* b4 = reinterpret_cast<const float4*>(b);
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-#pragma unroll 4
-    for (int q = lane; q < (n >> 2); q += 32) {
-      const float4 ra = a4[q], rb = b4[q], v = x4[q];
-      acc_a = fmaf(ra.x, v.x, acc_a);
-      acc_a = fmaf(ra.y, v.y, acc_a);
-      acc_a = fmaf(ra.z, v.z, acc_a);
-      acc_a = fmaf(ra.w, v.w, acc_a);
-      acc_b = fmaf(rb.x, v.x, acc_b);
-      acc_b = fmaf(rb.y, v.y, acc_b);
-      acc_b = fmaf(rb.z, v.z, acc_b);
-      acc_b = fmaf(rb.w, v.w, acc_b);
-    }
-  } else {
-#pragma unroll 4
-    for (int j = lane; j < n; j += 32) {
-      acc_a = fmaf(a[j], x[j], acc_a);
-      acc_b = fmaf(b[j], x[j], acc_b);
-    }
-  }
-  sa = warp_sum(acc_a);
-  sb = warp_sum(acc_b);
-}
-
 // Both relu parts of one streamed entry: neg += max(-q, 0) x,
 // pos += max(q, 0) x (NaN kept, as the plain version's clamps).
 __device__ __forceinline__ void relu_fma(float q, float x, float& neg,
@@ -123,6 +88,58 @@ __device__ __forceinline__ void warp_row_relu_dots(
   } else {
 #pragma unroll 4
     for (int j = lane; j < n; j += 32) relu_fma(row[j], x[j], an, ap);
+  }
+  neg = warp_sum(an);
+  pos = warp_sum(ap);
+}
+
+// max(v, 0) in one instruction that keeps NaN (max.NaN, sm_80+), as
+// relu_nan does; a -0 entry may come out +0, a zero all the same.
+__device__ __forceinline__ float relu_max(float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// The relu-split dots of row `diag` of Qd with x, its diagonal entry left
+// out (K5: the splits' own diagonals are added by the caller).  Off the
+// diagonal relu(+-q) equals the materialized splits' entry.  Two max and
+// two FMA instructions per entry: the loop is bound by instruction issue.
+__device__ __forceinline__ void warp_row_split_dots(
+    const float* __restrict__ row, const float* __restrict__ x, int n,
+    bool vec, int diag, float& neg, float& pos) {
+  const int lane = threadIdx.x & 31;
+  float an = 0.f, ap = 0.f;
+  if (vec) {
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const int dq = diag >> 2, dc = diag & 3;
+#pragma unroll 4
+    for (int q = lane; q < (n >> 2); q += 32) {
+      float4 a = r4[q];
+      const float4 v = x4[q];
+      if (q == dq) {
+        if (dc == 0) a.x = 0.f;
+        else if (dc == 1) a.y = 0.f;
+        else if (dc == 2) a.z = 0.f;
+        else a.w = 0.f;
+      }
+      an = fmaf(relu_max(-a.x), v.x, an);
+      ap = fmaf(relu_max(a.x), v.x, ap);
+      an = fmaf(relu_max(-a.y), v.y, an);
+      ap = fmaf(relu_max(a.y), v.y, ap);
+      an = fmaf(relu_max(-a.z), v.z, an);
+      ap = fmaf(relu_max(a.z), v.z, ap);
+      an = fmaf(relu_max(-a.w), v.w, an);
+      ap = fmaf(relu_max(a.w), v.w, ap);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = lane; j < n; j += 32) {
+      const float a = j == diag ? 0.f : row[j];
+      an = fmaf(relu_max(-a), x[j], an);
+      ap = fmaf(relu_max(a), x[j], ap);
+    }
   }
   neg = warp_sum(an);
   pos = warp_sum(ap);

@@ -173,8 +173,8 @@ __device__ void qd_times(const TiledSolveArgs& a, SolveSmem& sm,
   for_tiles(a.n, a.B, [&](int r0, int b0) {
     float acc[4][4], unused[4][4];
     tile::products<false>(sm.gemm, r0, b0, a.n, a.n, a.B,
-                          tile::RowMajor<float>{a.qh, a.n},
-                          tile::Panel<false>{x, a.B}, acc, unused);
+                          tile::RowMajor{a.qh, a.n},
+                          tile::Panel{x, a.B}, acc, unused);
     store_tile(r0, b0, a.n, a.B, acc,
                [&](int r, int b, long long e, float s) {
                  out[e] = s - a.theta[r] * x[e];
@@ -196,8 +196,8 @@ __device__ void check_pass(const TiledSolveArgs& a, SolveSmem& sm,
       [&](int r0, int b0) {
         float acc[4][4], unused[4][4];
         tile::products<false>(sm.gemm, r0, b0, n, n, B,
-                              tile::RowMajor<float>{a.qh, n},
-                              tile::Panel<false>{a.ya, B}, acc, unused);
+                              tile::RowMajor{a.qh, n},
+                              tile::Panel{a.ya, B}, acc, unused);
         store_tile(r0, b0, n, B, acc,
                    [&](int r, int b, long long e, float s) {
                      a.qdy[e] = s - a.theta[r] * a.ya[e];
@@ -207,7 +207,7 @@ __device__ void check_pass(const TiledSolveArgs& a, SolveSmem& sm,
         float acc[4][4], unused[4][4];
         tile::products<false>(sm.gemm, r0, b0, m, n, B,
                               tile::Transposed{a.gp, m},
-                              tile::Panel<false>{a.ya, B}, acc, unused);
+                              tile::Panel{a.ya, B}, acc, unused);
         store_tile(r0, b0, m, B, acc,
                    [&](int, int, long long e, float s) { a.v[e] = s; });
       });
@@ -216,7 +216,7 @@ __device__ void check_pass(const TiledSolveArgs& a, SolveSmem& sm,
   for_tiles(m, B, [&](int r0, int b0) {
     float acc[4][4], unused[4][4];
     tile::products<false>(sm.gemm, r0, b0, m, m, B,
-                          tile::RowMajor<float>{a.qpi, m},
+                          tile::RowMajor{a.qpi, m},
                           tile::PanelSum{a.v, a.fp, B}, acc, unused);
     store_tile(r0, b0, m, B, acc,
                [&](int, int, long long e, float s) { a.u[e] = -s; });
@@ -228,16 +228,16 @@ __device__ void check_pass(const TiledSolveArgs& a, SolveSmem& sm,
       [&](int r0, int b0) {
         float acc[4][4], unused[4][4];
         tile::products<false>(sm.gemm, r0, b0, n, m, B,
-                              tile::RowMajor<float>{a.gp, m},
-                              tile::Panel<false>{a.u, B}, acc, unused);
+                              tile::RowMajor{a.gp, m},
+                              tile::Panel{a.u, B}, acc, unused);
         store_tile(r0, b0, n, B, acc,
                    [&](int, int, long long e, float s) { a.w[e] = s; });
       },
       [&](int r0, int b0) {
         float acc[4][4], unused[4][4];
         tile::products<false>(sm.gemm, r0, b0, m, m, B,
-                              tile::RowMajor<float>{a.qp, m},
-                              tile::Panel<false>{a.u, B}, acc, unused);
+                              tile::RowMajor{a.qp, m},
+                              tile::Panel{a.u, B}, acc, unused);
         store_tile(r0, b0, m, B, acc,
                    [&](int, int, long long e, float s) { a.v[e] = s; });
       });
@@ -312,8 +312,8 @@ __device__ void accel_pass(const TiledSolveArgs& a, SolveSmem& sm,
   for_tiles(n, B, [&](int r0, int b0) {
     float acc[4][4], unused[4][4];
     tile::products<false>(sm.gemm, r0, b0, n, n, B,
-                          tile::RowMajor<float>{a.qh, n},
-                          tile::Panel<false>{a.ya, B}, acc, unused);
+                          tile::RowMajor{a.qh, n},
+                          tile::Panel{a.ya, B}, acc, unused);
     store_tile(r0, b0, n, B, acc, [&](int r, int b, long long e, float s) {
       const float y = a.ya[e];
       const float gr = (s - a.theta[r] * y) + a.fd[e];
@@ -379,9 +379,9 @@ __device__ __noinline__ void update_tile(tile::Smem& sm, int r0, int b0,
                                          const int* state, int n, int B,
                                          float den_eps) {
   float den_acc[4][4], num_acc[4][4];
-  tile::products<true>(sm, r0, b0, n, n, B, tile::RowMajor<float>{qh, n},
-                       tile::Panel<false>{src, B}, den_acc, num_acc);
-  tile::update_epilogue(den_acc, num_acc, r0, b0, n, B, theta, false, fdn,
+  tile::products<true>(sm, r0, b0, n, n, B, tile::RowMajor{qh, n},
+                       tile::Panel{src, B}, den_acc, num_acc);
+  tile::update_epilogue(den_acc, num_acc, r0, b0, n, B, theta, fdn,
                         fdp, 1, src, dst, den_eps, state);
 }
 

@@ -13,13 +13,10 @@
 // SPLIT mode accumulates the two relu parts of A at once,
 //     acc0 += relu(A) X,   acc1 += relu(-A) X,
 // the on-the-fly splits of Qd_hat that the update needs (relu_nan keeps a
-// NaN entry NaN, as jnp.maximum does).  The loaders convert a bf16 matrix
-// entry to float (exact) and can round a panel entry to bf16 and back, so a
-// bf16 x bf16 product is formed exactly in float32 and summed in float32 —
-// the TPU's preferred_element_type=f32.
+// NaN entry NaN, as jnp.maximum does).  Float32 only: K3's bf16 mode runs
+// on the tensor cores (pqp_iterations_tiled.cu).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "pqp_common.cuh"
@@ -39,19 +36,13 @@ struct Smem {
   float x[BK][BL];
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 // A(r, k) = p[r * ld + k]: a row-major matrix.
-template <typename T>
 struct RowMajor {
-  const T* p;
+  const float* p;
   int ld;
   static constexpr bool kTrans = false;
   __device__ __forceinline__ float operator()(int r, int k) const {
-    return to_float(p[(long long)r * ld + k]);
+    return p[(long long)r * ld + k];
   }
 };
 
@@ -65,14 +56,12 @@ struct Transposed {
   }
 };
 
-// X(k, b) = p[k * B + b], optionally rounded through bf16.
-template <bool ROUND_BF16>
+// X(k, b) = p[k * B + b].
 struct Panel {
   const float* p;
   int B;
   __device__ __forceinline__ float operator()(int k, int b) const {
-    const float v = p[(long long)k * B + b];
-    return ROUND_BF16 ? round_bf16(v) : v;
+    return p[(long long)k * B + b];
   }
 };
 
@@ -164,15 +153,13 @@ __device__ __forceinline__ void products(Smem& sm, int r0, int b0, int rows,
 }
 
 // The multiplicative update of one tile's entries from its split products:
-//     num = relu(-Q) y + th_i y_i + fdn,  den = relu(Q) y [+ th_i y_i] + fdp,
-//     y_new = (num / guard(den)) * y_i,
-// with the theta term on the denominator too when sym_theta (the bf16
-// stream keeps theta out of the matrix).  With a lane_state array, lanes
+//     num = relu(-Q) y + th_i y_i + fdn,  den = relu(Q) y + fdp,
+//     y_new = (num / guard(den)) * y_i.  With a lane_state array, lanes
 // whose state is not 0 (certified or stalled) keep y_i.
 // fd_lane selects per-lane (n x B) or shared (n) forcing panels.
 __device__ __forceinline__ void update_epilogue(
     const float (&den_acc)[4][4], const float (&num_acc)[4][4], int r0,
-    int b0, int n, int B, const float* theta, bool sym_theta,
+    int b0, int n, int B, const float* theta,
     const float* fdn, const float* fdp, int fd_lane, const float* y_in,
     float* y_out, float den_eps, const int* lane_state) {
   const int tr = row_group(), tl = lane_group();
@@ -192,8 +179,7 @@ __device__ __forceinline__ void update_epilogue(
       if (lane_state == nullptr || lane_state[b] == 0) {
         const float ty = th * y;
         const float num = (num_acc[i][j] + ty) + fdn[f];
-        const float den = sym_theta ? (den_acc[i][j] + ty) + fdp[f]
-                                    : den_acc[i][j] + fdp[f];
+        const float den = den_acc[i][j] + fdp[f];
         out = (num / guard_den(den, den_eps)) * y;
       }
       y_out[e] = out;

@@ -58,21 +58,23 @@ SIGNATURES = {
     # the arguments of full_solve_f32
     "full_solve_packed_f32": [_P] * 6 + [_P, _I] * 8 + [_P] * 4 + [_I] * 6
     + [_F, _F, _I, _F, _I, _P],
-    # q, q_bf16, theta, fdn, fdp, fd_lane, y, y_out, y_tmp, n, B,
-    # num_iters, den_eps, stream
-    "pqp_iterations_tiled": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                             _F, _P],
+    # q, q_bf16, theta, fdn, fdp, fd_lane, y, y_out, y_tmp, yb0, yb1, n,
+    # B, num_iters, den_eps, tile_rows, tile_lanes, stream
+    "pqp_iterations_tiled": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _F, _I, _I, _P],
     # qh, theta, gp, qp, qpi, fp, fd, fdp, fdn, kps, mp, md, y0,
     # y_out, u_out, iters_out, state_out, yb, qdy, w, g, p, v, lane, part,
     # n, m, B, max_iters, check_every, accel, eaj, erj, strict, den_eps,
     # gap_comp, stream
     "full_solve_tiled_f32": [_P] * 25 + [_I] * 6 + [_F, _F, _I, _F, _I, _P],
-    # qdn, qdp, qd, gp, gp_stride, qp, qpi, qp_stride,
+    # dn, dp, qd, gp, gp_stride, qp, qpi, qp_stride,
     # fp, fd, fdp, fdn, kps, mp, md, y0, y_out, u_out, iters_out, state_out,
     # n, m, B, max_iters, check_every, accel_every, eaj, erj, strict,
-    # den_eps, stream
+    # den_eps, resident, stream
     "full_solve_distinct_f32": [_P] * 4 + [_L] + [_P] * 2 + [_L]
-    + [_P] * 12 + [_I] * 6 + [_F, _F, _I, _F, _P],
+    + [_P] * 12 + [_I] * 6 + [_F, _F, _I, _F, _I, _P],
+    # n, m, B, resident, out (3 ints)
+    "full_solve_distinct_cluster": [_I] * 4 + [_P],
     # qh, theta, gp, gp_stride, qp, qpi, qp_stride,
     # fp, fd, fdp, fdn, kps, mp, md, y0, y_out, u_out, iters_out, state_out,
     # n, m, B, max_iters, check_every, accel, eaj, erj, strict, den_eps,

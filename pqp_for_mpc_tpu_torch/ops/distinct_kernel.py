@@ -7,16 +7,20 @@ builds them), and for each instance the whole solve — multiplicative
 updates, the four-part check with the recovered U and the EXPLICIT gap
 ``Jp + Jd``, the safeguarded acceleration in ``accel_every`` chunks, the
 stall freeze and a per-instance early exit.  The kernel is
-``csrc/full_solve_distinct.cu`` (one thread block per instance; see the note
-at the top of the source); :func:`fused_full_solve_distinct_reference` is
-its plain PyTorch version, the TPU kernel's body vectorised over the
-instances.  Lane codes are K1's (0 max_iters, 1 certified, 2 stalled).
+``csrc/full_solve_distinct.cu``: one instance per thread-block cluster, its
+``Qd`` rows resident in the cluster's shared memory where they fit, the
+splits rebuilt from ``Qd`` and the splits' diagonals (see the note at the
+top of the source); :func:`fused_full_solve_distinct_reference` is its plain
+PyTorch version, the TPU kernel's body vectorised over the instances.  Lane
+codes are K1's (0 max_iters, 1 certified, 2 stalled).
 
-:func:`distinct_fits_resident` is the port's routing line for this kernel;
-the kernel itself takes any N whose per-instance vectors fit one block's
-shared memory (:func:`smem_bytes`; N <= 5,256 at M = N/4) and raises past
-it.  Dispatch: CPU tensors run the plain version; CUDA tensors launch the
-kernel, and a failed build or launch raises.
+:func:`distinct_fits_resident` is the port's routing line for this kernel.
+:func:`k5_plan` says whether the kernel keeps an instance's ``Qd`` rows
+in shared memory for an ``(N, M)`` and which cluster sizes hold it; the
+kernel takes any ``(N, M)`` the plan covers (:func:`fits_kernel`; N <=
+:data:`K5_N_MAX` at M = N/4) and raises past it.  Dispatch: CPU tensors
+run the plain version; CUDA tensors launch the kernel, and a failed build
+or a launch the card refuses raises.
 ``fused_full_solve_distinct.launches`` counts the launches.
 """
 
@@ -49,16 +53,85 @@ def distinct_fits_resident(n: int, m: int) -> bool:
     return (3 * n * n + 2 * n * m + 2 * m * m) * 4 <= DISTINCT_OPERAND_BUDGET
 
 
-def smem_bytes(n: int, m: int) -> int:
-    """Shared memory of one K5 block: ten N-vectors (three iterates, Fd,
-    Fd^-, Fd^+, Kp slack, gradient, direction, row values), four
-    M-vectors (Fp, Gp'Y + Fp, U, Qp U) and the reduction slots."""
-    return (10 * _round4(n) + 4 * _round4(m) + 8 * 32) * 4
+#: cluster sizes K5 may take (blocks per instance; above 8 non-portable)
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+
+
+def cluster_smem_bytes(n: int, m: int, C: int, resident: bool) -> int:
+    """Shared memory of one K5 block (``csrc/cluster_solve.cuh:
+    cluster_smem_floats``) with C blocks per instance: its Qd rows when
+    ``resident`` (rows zero-padded to a multiple of 4 floats), three
+    N-vectors and two M-vectors, nine own-row vectors, two exchange slots and
+    the reductions."""
+    mat = -(-n // C) * _round4(n) if resident else 0
+    own = _round4(-(-max(n, m) // C))
+    slot = _round4(max(m, -(-n // C), 8))
+    return 4 * (mat + 3 * _round4(n) + 2 * _round4(m)
+                + 9 * own + 2 * slot + 8 * 32 + 8)
+
+
+def k5_plan(n: int, m: int) -> dict:
+    """Where K5 keeps the Qd rows for ``N=n``, ``M=m`` on an H100, whose
+    blocks hold :data:`SMEM_LIMIT_BYTES` of shared memory and whose clusters
+    take :data:`CLUSTER_SIZES`: ``resident`` (in shared memory) when they
+    fit some size, else streamed from global memory; ``sizes`` maps the
+    cluster sizes that hold that layout to their shared memory per block.
+    The launcher picks the size on the card
+    (``cudaOccupancyMaxActiveClusters``, fewest waves times rows per block;
+    :func:`card_cluster`).  Raises a ValueError past the largest ``(N, M)``
+    any size holds."""
+    if n < 1 or m < 1:
+        raise ValueError(f"K5 needs N, M >= 1, got N={n}, M={m}")
+    for resident in (True, False):
+        fits = {C: b for C in CLUSTER_SIZES if C <= n and (
+            b := cluster_smem_bytes(n, m, C, resident)) <= SMEM_LIMIT_BYTES}
+        if fits:
+            return dict(n=n, m=m, resident=resident, sizes=fits)
+    C = max(CLUSTER_SIZES)
+    raise ValueError(
+        f"fused_full_solve_distinct: N={n}, M={m} need "
+        f"{cluster_smem_bytes(n, m, C, False)} bytes of shared memory per "
+        f"block at {C} blocks per instance, more than a block's "
+        f"{SMEM_LIMIT_BYTES} (K5 takes N <= {K5_N_MAX} at M = N/4); use "
+        "solve_fused_distinct_tiled or solve_batched")
 
 
 def fits_kernel(n: int, m: int) -> bool:
     """Does K5 take an ``N=n``, ``M=m`` problem at all?"""
-    return n >= 1 and m >= 1 and smem_bytes(n, m) <= SMEM_LIMIT_BYTES
+    try:
+        k5_plan(n, m)
+    except ValueError:
+        return False
+    return True
+
+
+def _n_max() -> int:
+    """The largest N whose plan exists at M = N/4 (rounded up)."""
+    lo, hi = 1, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if cluster_smem_bytes(mid, -(-mid // 4), max(CLUSTER_SIZES),
+                              False) <= SMEM_LIMIT_BYTES:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+#: the largest N that K5 takes at M = N/4 (streamed, 16 blocks per instance)
+K5_N_MAX = _n_max()
+
+
+def card_cluster(n: int, m: int, B: int, resident: bool) -> dict:
+    """What the K5 launcher picks on this card for ``B`` instances with the
+    Qd rows ``resident`` or not: blocks per instance, clusters the card
+    holds at once and shared memory per block.  Needs the card."""
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    build.check(build.load_library().full_solve_distinct_cluster(
+        n, m, B, int(bool(resident)), out), "full_solve_distinct_cluster")
+    return dict(blocks_per_instance=out[0], active_clusters=out[1],
+                smem_bytes=out[2])
 
 
 def fused_full_solve_distinct_reference(Qdn_theta, Qdp_theta, Qd, Gp, Qp,
@@ -110,6 +183,29 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def split_diagonal(split: torch.Tensor, qd: torch.Tensor, sign: float,
+                   name: str, device) -> torch.Tensor:
+    """The diagonal ``(B, N)`` of a materialized split, the only part of it
+    K5 reads, after checking on the first instance that its other entries
+    are ``relu(sign * Qd)`` (the kernel rebuilds them from ``Qd``)."""
+    B, N, _ = qd.shape
+    if split.device != device or split.dtype != torch.float32 or \
+            tuple(split.shape) != (B, N, N):
+        raise ValueError(f"{name}: expected float32 ({B}, {N}, {N}) on "
+                         f"{device}, got {split.dtype} {tuple(split.shape)} "
+                         f"on {split.device}")
+    if B:
+        off = ~torch.eye(N, dtype=torch.bool, device=device)
+        got, want = split[0][off], torch.clamp(sign * qd[0], min=0.0)[off]
+        if not bool(((got == want) | (got.isnan() & want.isnan())).all()):
+            raise ValueError(
+                f"fused_full_solve_distinct: {name} is not relu("
+                f"{'-' if sign < 0 else ''}Qd) off the diagonal; the kernel "
+                "rebuilds the splits from Qd (build them with "
+                "dualize_distinct)")
+    return torch.diagonal(split, dim1=1, dim2=2).contiguous()
+
+
 def fused_full_solve_distinct(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
                               Fp, Fd, Fdp, Fdn, Kp_slack, Mp, Md, Y0, *,
                               max_iters: int, check_every: int,
@@ -123,7 +219,14 @@ def fused_full_solve_distinct(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
     ``Qp``/``Qp_inv (B, M, M)`` (the primal ones may also be shared, 2-D);
     panels ``(M, B)``/``(N, B)`` per instance or shared; ``Mp``/``Md (B,)``;
     ``Kp_slack`` the pre-slackened threshold.  Returns ``(Y (N, B),
-    U (M, B), iters (B,) int32, lane_state (B,) int32)``."""
+    U (M, B), iters (B,) int32, lane_state (B,) int32)``.
+
+    The kernel reads only the diagonals of ``Qdn_theta`` and ``Qdp_theta``
+    and rebuilds their other entries as ``relu(-Qd)`` and ``relu(Qd)``, as
+    :func:`~pqp_for_mpc_tpu_torch.dual.dualize_distinct` builds them; on a
+    CUDA tensor a pair of splits that differs from that off the diagonal
+    (checked on the first instance) raises a ValueError.  The plain version
+    takes any splits."""
     kw = dict(max_iters=max_iters, check_every=check_every,
               accel_every=accel_every, eaj=eaj, erj=erj, strict=strict,
               den_eps=den_eps, precision=precision)
@@ -136,18 +239,13 @@ def fused_full_solve_distinct(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
                          "Qd (B, N, N)")
     N, B = Y0.shape
     M = Gp.shape[-1]
-    if not fits_kernel(N, M):
-        raise ValueError(
-            f"fused_full_solve_distinct: N={N}, M={M} need "
-            f"{smem_bytes(N, M)} bytes of shared memory per instance, more "
-            f"than a block's {SMEM_LIMIT_BYTES}; use "
-            "solve_fused_distinct_tiled or solve_batched")
+    plan = k5_plan(N, M)
     if check_every < 1 or accel_every < 0:
         raise ValueError("check_every must be >= 1 and accel_every >= 0")
     dev = Y0.device
-    qdn, qdp, qd = (aligned(_matrix(t, (B, N, N), name, dev))
-                    for t, name in ((Qdn_theta, "Qdn_theta"),
-                                    (Qdp_theta, "Qdp_theta"), (Qd, "Qd")))
+    qd = aligned(_matrix(Qd, (B, N, N), "Qd", dev))
+    dn, dp = (split_diagonal(t, qd, sign, name, dev) for t, sign, name in (
+        (Qdn_theta, -1.0, "Qdn_theta"), (Qdp_theta, 1.0, "Qdp_theta")))
     gp, gp_stride = instance_matrix(Gp, B, N, M, "Gp", dev)
     qp, qp_stride = instance_matrix(Qp, B, M, M, "Qp", dev)
     qpi, qpi_stride = instance_matrix(Qp_inv, B, M, M, "Qp_inv", dev)
@@ -167,12 +265,13 @@ def fused_full_solve_distinct(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
         return y.T, u.T, iters, state
     lib = build.load_library()
     code = lib.full_solve_distinct_f32(
-        qdn.data_ptr(), qdp.data_ptr(), qd.data_ptr(), gp.data_ptr(),
+        dn.data_ptr(), dp.data_ptr(), qd.data_ptr(), gp.data_ptr(),
         gp_stride, qp.data_ptr(), qpi.data_ptr(), qp_stride,
         *[t.data_ptr() for t in panels], y.data_ptr(), u.data_ptr(),
         iters.data_ptr(), state.data_ptr(), N, M, B, int(max_iters),
         int(check_every), int(accel_every), float(eaj), float(erj),
-        int(bool(strict)), float(den_eps), build.stream_handle(dev))
+        int(bool(strict)), float(den_eps), int(plan["resident"]),
+        build.stream_handle(dev))
     build.check(code, "fused_full_solve_distinct")
     fused_full_solve_distinct.launches += 1
     return y.T, u.T, iters, state

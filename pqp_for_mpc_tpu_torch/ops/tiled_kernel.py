@@ -23,8 +23,10 @@ version :func:`streamed_pqp_iterations_reference` for CPU tensors), and
 counts its launches per stream type in
 ``streamed_pqp_iterations.launches``.  :func:`fused_pqp_iterations_tiled`
 keeps the JAX signature (unsplit ``Qd`` and ``theta``) for the tests.  The
-TPU's slab picker and VMEM budgets (``pick_tiled_blocks``) are not ported:
-the kernel's tile plan is fixed (32-row x 64-lane tiles, see the source).
+TPU's slab picker and VMEM budgets (``pick_tiled_blocks``) are not ported.
+The float32 mode runs fixed 32-row x 64-lane tiles on the CUDA cores; the
+bfloat16 mode runs its products on the tensor cores (bf16 MMAs with float32
+accumulation) over the tiles of :func:`k3_bf16_plan` (see the source).
 """
 
 from __future__ import annotations
@@ -59,6 +61,29 @@ def streamed_matrix(Qd: torch.Tensor, theta: torch.Tensor,
     else:
         q.diagonal().copy_(diag + theta)
     return q.contiguous(), theta.contiguous()
+
+
+#: streaming multiprocessors of an H100 SXM: the bf16 tile plan's target
+#: block count (one block per SM at least)
+H100_SMS = 132
+
+
+def k3_bf16_plan(n: int, B: int, sms: int = H100_SMS) -> dict:
+    """The bf16 mode's tile plan for ``Y (n, B)``: the widest lane tile
+    (16, 32 or 64 lanes) that the batch fills, then the tallest row tile
+    (64, 32 or 16 rows) that still gives ``sms`` blocks, else 16 rows.  A
+    warp covers 16 rows x 16 lanes of the tile (the fastest warp tile at
+    N = 4096, B = 128 in ``tools/probe_k3.py``).  No depth split: at
+    N = 4096, B = 128 the 32-row tiles give 256 blocks."""
+    if n < 1 or B < 1:
+        raise ValueError(f"k3_bf16_plan needs n, B >= 1, got {n}, {B}")
+    lanes = 16 if B <= 16 else 32 if B <= 32 else 64
+    lane_tiles = -(-B // lanes)
+    rows = next((r for r in (64, 32, 16) if -(-n // r) * lane_tiles >= sms),
+                16)
+    return dict(tile_rows=rows, tile_lanes=lanes, threads=rows * lanes // 8,
+                blocks=-(-n // rows) * lane_tiles,
+                staged_by_cp_async=n % 8 == 0 and B % 8 == 0)
 
 
 def streamed_pqp_iterations_reference(Q: torch.Tensor, theta: torch.Tensor,
@@ -111,6 +136,8 @@ def streamed_pqp_iterations(Q: torch.Tensor, theta: torch.Tensor,
                          f"{dev}, got {Q.dtype} {tuple(Q.shape)} on "
                          f"{Q.device}")
     q = Q.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()                       # the kernels read 16-byte rows
     th = _matrix(theta, (N,), "theta", dev)
     fdn, fdn_lane = _panel(Fdn, N, B, "Fdn", dev)
     fdp, fdp_lane = _panel(Fdp, N, B, "Fdp", dev)
@@ -124,12 +151,20 @@ def streamed_pqp_iterations(Q: torch.Tensor, theta: torch.Tensor,
         return y.clone()
     out = torch.empty_like(y)
     tmp = torch.empty_like(y) if num_iters > 1 else out
+    rows = lanes = 0
+    yb = None
+    if mode == "bfloat16":
+        # the iterate's bf16 rounding, ping-pong, for the tensor cores
+        plan = k3_bf16_plan(N, B)
+        rows, lanes = plan["tile_rows"], plan["tile_lanes"]
+        yb = torch.empty((2, N, B), dtype=torch.bfloat16, device=dev)
     lib = build.load_library()
     code = lib.pqp_iterations_tiled(
         q.data_ptr(), int(mode == "bfloat16"), th.data_ptr(), fdn.data_ptr(),
         fdp.data_ptr(), fdn_lane, y.data_ptr(), out.data_ptr(),
-        tmp.data_ptr(), N, B, int(num_iters), float(den_eps),
-        build.stream_handle(dev))
+        tmp.data_ptr(), None if yb is None else yb[0].data_ptr(),
+        None if yb is None else yb[1].data_ptr(), N, B, int(num_iters),
+        float(den_eps), rows, lanes, build.stream_handle(dev))
     build.check(code, "streamed_pqp_iterations")
     streamed_pqp_iterations.launches[mode] += 1
     return out

@@ -171,6 +171,26 @@ def test_k3_kernel_matches_plain(dev, N, B, dtype):
     torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5)
 
 
+@pytest.mark.parametrize("N,B", [(4096, 128), (256, 1), (203, 5)])
+def test_k3_bf16_tensor_core_plans_match_plain(dev, N, B):
+    # the streamed workload's shape (32 x 64 tiles, cp.async), the H=64
+    # loop's single lane and a ragged shape (both staged entry by entry)
+    primal, dual = _random_problem(dev, N, N // 4, B)
+    Y = torch.as_tensor(np.random.default_rng(1).uniform(0.5, 2.0, (N, B))
+                        .astype(np.float32), device=dev)
+    Q, th = tiled_kernel.streamed_matrix(dual.Qd, dual.theta, "bfloat16")
+    args = (Q, th, dual.Fdn, dual.Fdp, Y)
+    k3 = tiled_kernel.streamed_pqp_iterations
+    before = k3.launches["bfloat16"]
+    got = k3(*args, num_iters=16, den_eps=1e-30)
+    want = tiled_kernel.streamed_pqp_iterations_reference(
+        *args, num_iters=16, den_eps=1e-30)
+    torch.cuda.synchronize()
+    assert k3.launches["bfloat16"] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)
+    assert bool((k3(*args, num_iters=16, den_eps=1e-30) == got).all())
+
+
 K4_CASES = {
     "complementarity_gap": (SolverConfig(
         max_iters=4000, check_every=8, y0=10.0, strict_weak_duality=False,
@@ -314,9 +334,15 @@ K5_CASES = {
     "ragged_n203_m51": (DISTINCT_CFG, 203, 51, 3),
     "accel": (dataclasses.replace(DISTINCT_CFG, check_every=4,
                                   accel_every=4), 200, 50, 3),
-    # accelerated: ~2,200 iterations where the plain update needs ~10x more
+    # accelerated: ~2,200 iterations where the plain update needs ~10x more;
+    # past the cluster's capacity (its rows streamed)
     "n1024_m256_accel": (dataclasses.replace(DISTINCT_CFG, accel_every=8),
                          1024, 256, 3),
+    # bench_distinct's shape: every owned row resident in shared memory
+    "n400_m100_resident": (DISTINCT_CFG, 400, 100, 3),
+    # the accel step every 4 updates inside 8-update rounds
+    "chunked_accel_n200": (dataclasses.replace(DISTINCT_CFG, check_every=8,
+                                               accel_every=4), 200, 50, 3),
 }
 
 
@@ -345,6 +371,17 @@ def test_k5_kernel_matches_plain(dev, case):
     _whole_solve_parity(out, out_p, cfg.check_every, cfg.accel_every)
     again = k5(*args, **kw)
     assert all(bool((a == b).all()) for a, b in zip(again, out))
+
+
+def test_k5_card_pick_is_in_the_plan(dev):
+    # the launcher's layout for bench_distinct's workload is one of the
+    # plan's, and the card holds at least one such cluster
+    plan = distinct_kernel.k5_plan(400, 100)
+    pick = distinct_kernel.card_cluster(400, 100, 1024, plan["resident"])
+    sizes = plan["sizes"]
+    assert pick["blocks_per_instance"] in sizes
+    assert pick["active_clusters"] >= 1
+    assert pick["smem_bytes"] == sizes[pick["blocks_per_instance"]]
 
 
 #: bench_mixed.py --distinct --accel's configuration (its lines 78-83)

@@ -166,9 +166,68 @@ def test_distinct_fits_resident_is_the_tpu_budget():
     assert fits(400, 100)                   # bench_distinct's workload: K5
     assert not fits(2048, 512)              # bench_mixed --distinct
     assert fits(1200, 300) and not fits(1210, 302)   # crosses near 1,200
-    # K5 itself holds any N whose vectors fit one block's shared memory
+    # K5 itself holds any N whose plan exists: past the router's line it
+    # streams its rows, up to the vectors of 16 blocks per instance
     assert distinct_kernel.fits_kernel(5256, 1314)
-    assert not distinct_kernel.fits_kernel(5260, 1315)
+    n_max = distinct_kernel.K5_N_MAX
+    assert distinct_kernel.fits_kernel(n_max, -(-n_max // 4))
+    assert not distinct_kernel.fits_kernel(n_max + 4, -(-(n_max + 4) // 4))
+
+
+def test_k5_plan_resident_and_streamed():
+    plan = distinct_kernel.k5_plan
+    # bench_distinct's workload: its Qd rows resident at 4, 8 or 16 blocks
+    # per instance
+    p = plan(400, 100)
+    assert p["resident"] and sorted(p["sizes"]) == [4, 8, 16]
+    # past the cluster's capacity: the same body streams its rows
+    for n, m in ((1024, 256), (2048, 512)):
+        p = plan(n, m)
+        assert not p["resident"] and 16 in p["sizes"]
+    # every (N, M) that K5 took before the cluster design (N <= 5,256 at
+    # M = N/4) has a plan, and its sizes fit a block
+    for n in list(range(1, 5257, 37)) + [5256]:
+        p = plan(n, -(-n // 4))
+        assert p["sizes"] and all(b <= 232448 for b in p["sizes"].values())
+    n_max = distinct_kernel.K5_N_MAX
+    with pytest.raises(ValueError, match=f"N <= {n_max}"):
+        plan(n_max + 4, -(-(n_max + 4) // 4))
+
+
+@pytest.mark.parametrize("N", [200, 203])
+def test_split_identity_rebuilds_the_materialized_splits(N):
+    """K5 reads Qd and the splits' diagonals only: relu(+-Qd) off the
+    diagonal plus the split diagonals equal dualize_distinct's materialized
+    splits bit for bit."""
+    jp = _instances(B=3, M=N // 4, N=N, seed=1)
+    td = pqp.dualize_distinct(
+        convert.primal_from_numpy(convert.to_numpy(jp), device="cpu"))
+    eye = torch.eye(N, dtype=torch.bool)
+    for split, sign in ((td.Qdp_theta, 1.0), (td.Qdn_theta, -1.0)):
+        off = torch.clamp(sign * td.Qd, min=0.0).masked_fill(eye, 0.0)
+        rebuilt = off + torch.diag_embed(torch.diagonal(split, dim1=1,
+                                                        dim2=2))
+        assert torch.equal(rebuilt, split)
+
+
+def test_k5_reads_only_the_split_diagonals():
+    """K5 takes the splits' diagonals and rebuilds the rest from Qd: the
+    wrapper hands it dualize_distinct's diagonals and refuses a pair of
+    splits that differs off the diagonal; the plain version takes any."""
+    jp = _instances(B=2, M=12, N=48, seed=2)
+    td = pqp.dualize_distinct(
+        convert.primal_from_numpy(convert.to_numpy(jp), device="cpu"))
+    split_diagonal = distinct_kernel.split_diagonal
+    for split, sign, name in ((td.Qdn_theta, -1.0, "Qdn_theta"),
+                              (td.Qdp_theta, 1.0, "Qdp_theta")):
+        diag = split_diagonal(split, td.Qd, sign, name, td.Qd.device)
+        assert torch.equal(diag, torch.diagonal(split, dim1=1, dim2=2))
+        bad = split.clone()
+        bad[0, 0, 1] += 1.0
+        with pytest.raises(ValueError, match=name):
+            split_diagonal(bad, td.Qd, sign, name, td.Qd.device)
+        with pytest.raises(ValueError, match="expected float32"):
+            split_diagonal(split[:, :-1], td.Qd, sign, name, td.Qd.device)
 
 
 K5_CASES = {

@@ -260,3 +260,20 @@ def test_cpu_tensors_leave_streamed_counters_at_zero():
         max_iters=16, check_every=8))
     assert k3.launches == {"float32": 0, "bfloat16": 0}
     assert k4.launches == 0
+
+
+def test_k3_bf16_tile_plan():
+    plan = tiled_kernel.k3_bf16_plan
+    # the streamed workload fills the card: one block per SM at least
+    p = plan(4096, 128)
+    assert p["blocks"] >= 132 and p["staged_by_cp_async"]
+    assert (p["tile_rows"], p["tile_lanes"]) == (32, 64)
+    # the H=64 closed loop (B = 1) and a ragged shape: one valid plan each
+    for n, B in ((256, 1), (203, 5)):
+        p = plan(n, B)
+        assert p["tile_rows"] in (16, 32, 64) and p["tile_lanes"] in (16, 32,
+                                                                      64)
+        assert p["tile_lanes"] >= B and not p["staged_by_cp_async"]
+        assert p["blocks"] == -(-n // p["tile_rows"])
+    with pytest.raises(ValueError):
+        plan(0, 4)
