@@ -39,11 +39,13 @@ at full size and times them:
 Each kernel is held against its plain version at the shapes its path gives
 it.  The ``launches`` of the kernel table are those of ONE call of each
 path's route, counted from 0.  K5's cluster plan (``k5_plan`` and the
-card's pick) and K3's bf16 tile plans are printed; K3 bf16 is held at the
-streamed workload's shape and at the H=64 loop's single lane, K5 with its
-rows resident (N = 400) and streamed (N = 1,024), each also against its own
-relaunch, bit for bit.  The times of the kernels redesigned for Hopper (K5,
-K3 bf16) under their previous designs are printed on a line of their own
+card's pick), K3's bf16 tile plans, K4's tile plan (``k4_plan``) and K2's
+launch plan (``k2_plan``) are printed; K3 bf16 is held at the streamed
+workload's shape and at the H=64 loop's single lane, K5 with its rows
+resident (N = 400) and streamed (N = 1,024), K2 at both of its batches and
+K4 at the streamed workload, each also against its own relaunch, bit for
+bit.  The times of the kernels redesigned for Hopper (K5, K3 bf16, K4,
+K2) under their previous designs are printed on a line of their own
 (``earlier_times``), quoted from PERF.md, not measured here.  K7's row
 is its bf16 mode, the one its path runs, timed in two windows in turns
 with its plain version (``ms_windows``); its float32 mode is held and
@@ -126,9 +128,11 @@ HBM_BPS, F32_FLOPS, BF16_FLOPS, L2_BYTES = 3.35e12, 67e12, 989e12, 50e6
 #: per clock at the 1.98 GHz boost clock (the K5 design's read floor)
 SMEM_BPS = 132 * 128 * 1.98e9
 #: the redesigned kernels' times under their previous designs, quoted
-#: from PERF.md section 6 (PR 4's final call on an H100 80GB HBM3, 700 W):
-#: printed on a line of their own, never in the kernel table
-EARLIER_MS = {"k5": 4589.51, "k3_bfloat16": 6.925}
+#: from PERF.md section 6 (each from the last chip run before its
+#: redesign, on an H100 80GB HBM3, 700 W): printed on a line of their own,
+#: never in the kernel table
+EARLIER_MS = {"k5": 4589.51, "k3_bfloat16": 6.925, "k4": 2088.37,
+              "k2": 7.762}
 
 
 def emit(phase: str, **fields) -> None:
@@ -467,8 +471,13 @@ def main() -> int:
     require(kernels.fused_pqp_iterations.launches == before + 1,
             "K2 launch counter did not move")
     k2_cmp = k2_parity(got, want)
+    k2_cmp["repeats_bits"] = bool((kernels.fused_pqp_iterations(
+        *k2_args, num_iters=8, den_eps=smoke_cfg.den_eps) == got).all())
+    emit("k2_plan", main_path=kernels.k2_plan(N, B_MAIN),
+         comparison=kernels.k2_plan(N, B_CMP))
     emit("k2_vs_plain", batch=B_CMP, num_iters=8, **k2_cmp)
     require(k2_cmp["ok"], f"K2 disagrees with its plain version: {k2_cmp}")
+    require(k2_cmp["repeats_bits"], "K2 did not repeat its bits")
 
     # -- phase 3: K1 (solve_fused) against its plain version -------------
     args, kw = solve_kernel.fused_inputs(primal, dual, None, smoke_cfg)
@@ -677,13 +686,18 @@ def main() -> int:
                                   device=dev)
     k2_args = (dual.Qdn_theta, dual.Qdp_theta, dual.Fdn, dual.Fdp, Yb)
     k2_kw = dict(num_iters=smoke_cfg.check_every, den_eps=smoke_cfg.den_eps)
+    got = kernels.fused_pqp_iterations(*k2_args, **k2_kw)
     k2_cmp = k2_parity(
-        kernels.fused_pqp_iterations(*k2_args, **k2_kw),
-        kernels.fused_pqp_iterations_reference(*k2_args, **k2_kw))
+        got, kernels.fused_pqp_iterations_reference(*k2_args, **k2_kw))
+    k2_cmp["repeats_bits"] = bool(
+        (kernels.fused_pqp_iterations(*k2_args, **k2_kw) == got).all())
+    del got
     emit("k2_vs_plain", batch=B_MAIN, num_iters=smoke_cfg.check_every,
          **k2_cmp)
     require(k2_cmp["ok"], f"K2 disagrees with its plain version at the "
                           f"main path's batch: {k2_cmp}")
+    require(k2_cmp["repeats_bits"], "K2 did not repeat its bits at the main "
+                                    "path's batch")
     errs["k1"].append(k1_cmp["max_abs_err"])
     errs["k2"].append(k2_cmp["max_abs_err"])
     out_k8 = k8(*args, **kw)
@@ -773,10 +787,14 @@ def main() -> int:
                                                                 **t_kw)
     torch.cuda.synchronize()
     k4_plain_first_s = time.perf_counter() - k4_plain_t0
+    emit("k4_plan", streamed=tiled_solve_kernel.k4_plan(N_BIG, M_BIG, B_BIG))
     out_k4 = tiled_solve_kernel.fused_full_solve_tiled(*t_args, **t_kw)
     k4_cmp = solve_parity(out_k4, out_p, big_cfg.check_every)
+    k4_cmp["repeats_bits"] = all(bool((a == b).all()) for a, b in zip(
+        tiled_solve_kernel.fused_full_solve_tiled(*t_args, **t_kw), out_k4))
     emit("k4_vs_plain", n=N_BIG, m=M_BIG, batch=B_BIG, **k4_cmp)
     require(k4_cmp["ok"], f"K4 disagrees with its plain version: {k4_cmp}")
+    require(k4_cmp["repeats_bits"], "K4 did not repeat its bits")
     errs["k4"] = [k4_cmp["max_abs_err"]]
     del out_p
 
@@ -1234,8 +1252,9 @@ def main() -> int:
         "max_abs_err": errs["k7_float32"][0], "ms": times["k7_float32"][0],
         "plain_ms": times["k7_float32"][1], **bounds["k7_float32"]}
     emit("earlier_times", quoted_not_measured=True,
-         source="PERF.md section 6: the previous designs' times, PR 4's "
-                "final call, NVIDIA H100 80GB HBM3, 700.00 W",
+         source="PERF.md section 6: the previous designs' times, each "
+                "from the last chip run before its redesign, NVIDIA H100 "
+                "80GB HBM3, 700.00 W",
          **{f"{k}_ms": v for k, v in EARLIER_MS.items()})
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -93,14 +93,6 @@ __device__ __forceinline__ void warp_row_relu_dots(
   pos = warp_sum(ap);
 }
 
-// max(v, 0) in one instruction that keeps NaN (max.NaN, sm_80+), as
-// relu_nan does; a -0 entry may come out +0, a zero all the same.
-__device__ __forceinline__ float relu_max(float v) {
-  float r;
-  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(v));
-  return r;
-}
-
 // The relu-split dots of row `diag` of Qd with x, its diagonal entry left
 // out (K5: the splits' own diagonals are added by the caller).  Off the
 // diagonal relu(+-q) equals the materialized splits' entry.  Two max and

@@ -6,31 +6,45 @@
 // the safeguarded projected-gradient step at the check cadence (three more
 // passes over the matrix), the stall freeze and the early exit — the matrix
 // Qd_hat = Qd + diag(max(diag, 0) - diag + theta) streamed on every pass,
-// its splits rebuilt by relu (tile_gemm.cuh).
+// its splits rebuilt by relu.
 //
 // Design.  A cooperative persistent kernel: cudaLaunchCooperativeKernel
 // with a grid no larger than the blocks that fit on the card at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and
 // cooperative_groups::this_grid().sync() between dependent phases, which
 // replaces the TPU's sequential grid.  Each phase spreads its work over the
-// blocks: a matrix phase hands out 32-row x 64-lane output tiles, a lane
-// phase hands out (row chunk x 32 lanes) units, an elementwise phase
-// entries.  Every output row belongs to one block, and every per-lane sum is
-// taken in a fixed order: partial sums over 256-row chunks (four row groups
-// added in fixed order), then the chunks in ascending order — no atomics,
-// so iteration counts repeat from run to run.  The loop condition is read
-// by every block from the lane states after a grid sync, so all blocks
-// leave together.  Per round without acceleration: check (5 syncs),
-// check_every updates (one each), stall test (2); the accel step adds 9.
-// The iterates, Qd y, Gp u and the check's panels live in global memory
-// (2 MB each at N = 4096, B = 128: L2-resident); Qp and Qp^-1 (4 MB each
-// at M = 1024) are read from global memory / L2, not staged.
+// blocks: a matrix phase hands out 32-row tiles as wide as the batch (32,
+// 64 or 128 lanes: ops/tiled_solve_kernel.py: k4_plan), so at B <= 128 an
+// update reads each row of Qd_hat once; a lane phase hands out (row chunk
+// x 32 lanes) units, an elementwise phase entries.  Every matrix phase —
+// the update, the check's five products (Qd y, Gp'y + Fp, Qp^-1 (.),
+// Gp u, Qp u) and the accel step's three Qd products — runs one tile
+// (fma_tile.cuh: a 3-stage cp.async ring of 64-deep slabs, 4 rows x 4
+// lanes of float32 FMAs per thread) in a function of its own
+// (update_tile, product_tile), compiled __noinline__ and owning its
+// accumulators: the same loop inlined into this kernel ran at half speed.
+// Each entry's sum is one FMA chain in ascending k, the previous design's
+// order, so the iterates repeat its bits.  Every per-lane sum is taken in
+// a fixed order: partial sums over 256-row chunks (four row groups added in
+// fixed order), then the chunks in ascending order — no atomics, so a
+// relaunch repeats every bit.  The loop condition is read by every block
+// from the lane states after a grid sync, so all blocks leave together.
+// Per round without acceleration: check (5 syncs), check_every updates
+// (one each), stall test (2); the accel step adds 9.  The iterates, Qd y,
+// Gp u and the check's panels live in global memory (2 MB each at
+// N = 4096, B = 128: L2-resident).
 //
-// What bounds it on an H100.  As K3 (pqp_iterations_tiled.cu): an update
-// is 4 N^2 B flop on the CUDA cores, compute-bound (>= 0.13 ms at N = 4096,
-// B = 128); a check adds 2 N^2 B + 4 N M B + 4 M^2 B flop, an accel step
-// 6 N^2 B.  A grid sync costs microseconds, against ~0.35 ms per update.
-// The update tile is a separate (noinline) function: see update_tile.
+// What bounds it on an H100.  An update is 4 N^2 B flop (8.6 GFLOP at
+// N = 4096, B = 128) against 67 MB of Qd_hat, which exceeds the 50 MB L2
+// and is re-read from HBM on every pass (20 us at 3.35 TB/s); a check adds
+// 2 N^2 B + 4 N M B + 4 M^2 B flop, an accel step 6 N^2 B.  On the CUDA
+// cores the update's FMAs take at least 0.13 ms at the 67 TFLOP/s peak;
+// this tile issues about 42 instructions per 32 FMAs (the relu split of A
+// in registers, one float4 of the iterate per k) with one block of 8 warps
+// per SM, and runs an update in about 0.27 ms (tools/probe_k4.py).  A
+// 3xTF32 tensor-core tile ran an update in 0.23 ms but did not hold K4's
+// bars: on one lane of the accelerated card test it froze as stalled where
+// the plain version certifies (PERF.md).
 //
 // Semantics match pqp_for_mpc_tpu_torch/ops/tiled_solve_kernel.py:
 // fused_full_solve_tiled_reference up to float32 summation order.  Lane
@@ -39,15 +53,16 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "fma_tile.cuh"
 #include "pqp_common.cuh"
-#include "tile_gemm.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace pqp {
 
-constexpr int kChunk = 256;  // rows of one partial per-lane sum
-constexpr int kMaxSums = 5;  // sums one lane phase carries
+constexpr int kChunk = 256;   // rows of one partial per-lane sum
+constexpr int kMaxSums = 5;   // sums one lane phase carries
+constexpr int kRowGroups = 4; // warps that add a partial (the others wait)
 
 struct TiledSolveArgs {
   const float *qh, *theta, *gp, *qp, *qpi;        // geometry (read only)
@@ -66,77 +81,142 @@ struct TiledSolveArgs {
   int gap_comp;
 };
 
+template <int BN>
 union SolveSmem {
-  tile::Smem gemm;
-  float red[4][kMaxSums][32];
+  fma::Smem<BN> gemm;
+  float red[kRowGroups][kMaxSums][32];
 };
 
 __host__ __device__ inline int n_chunks(int rows) {
   return (rows + kChunk - 1) / kChunk;
 }
 
-// Grid-stride over the BM x BL tiles of a (rows x B) output:
+// Grid-stride over the BM x BN tiles of a (rows x B) output:
 // fn(r0, b0) for each tile this block owns.
-template <class Fn>
+template <int BN, class Fn>
 __device__ __forceinline__ void for_tiles(int rows, int B, Fn fn) {
-  const int lt = (B + tile::BL - 1) / tile::BL;
-  const int tiles = ((rows + tile::BM - 1) / tile::BM) * lt;
+  const int lt = (B + BN - 1) / BN;
+  const int tiles = ((rows + fma::BM - 1) / fma::BM) * lt;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-    fn((t / lt) * tile::BM, (t % lt) * tile::BL);
+    fn((t / lt) * fma::BM, (t % lt) * BN);
 }
 
 // Two outputs in one phase: the tiles of (rows1 x B) then of (rows2 x B).
-template <class Fn1, class Fn2>
+template <int BN, class Fn1, class Fn2>
 __device__ __forceinline__ void for_tiles2(int rows1, int rows2, int B,
                                            Fn1 fn1, Fn2 fn2) {
-  const int lt = (B + tile::BL - 1) / tile::BL;
-  const int t1 = ((rows1 + tile::BM - 1) / tile::BM) * lt;
-  const int t2 = ((rows2 + tile::BM - 1) / tile::BM) * lt;
+  const int lt = (B + BN - 1) / BN;
+  const int t1 = ((rows1 + fma::BM - 1) / fma::BM) * lt;
+  const int t2 = ((rows2 + fma::BM - 1) / fma::BM) * lt;
   for (int t = blockIdx.x; t < t1 + t2; t += gridDim.x) {
     if (t < t1)
-      fn1((t / lt) * tile::BM, (t % lt) * tile::BL);
+      fn1((t / lt) * fma::BM, (t % lt) * BN);
     else
-      fn2(((t - t1) / lt) * tile::BM, ((t - t1) % lt) * tile::BL);
+      fn2(((t - t1) / lt) * fma::BM, ((t - t1) % lt) * BN);
   }
 }
 
-// Store one tile: out(r, b) = f(r, b, acc) for the entries inside.
-template <class F>
-__device__ __forceinline__ void store_tile(int r0, int b0, int rows, int B,
-                                           const float (&acc)[4][4], F f) {
-  const int tr = tile::row_group(), tl = tile::lane_group();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + 4 * tr + i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = b0 + 4 * tl + j;
-      if (b < B) f(r, b, (long long)r * B + b, acc[i][j]);
+// What a product tile writes for its entry s = (A X)(r, b), e = r * B + b.
+enum Epilogue : int {
+  kStore,    // out = s
+  kNegate,   // out = -s
+  kQdCol,    // out = s - theta_r x  (Qd with its diagonal clamped, times x)
+  kAddAux,   // out = s + aux
+  kGrad,     // g = (s - theta_r y) + Fd into out, the accel direction into
+             // out2: -g where y > 0 or g < 0, else 0 (x = y, aux = Fd)
+};
+
+// One product phase's job: A (rows x depth, leading dimension lda; the
+// transpose of a row-major (depth x rows) matrix for product_tile<BN,
+// true>) times the panel x.
+struct Job {
+  const float* a;
+  const float* x;
+  const float* aux;
+  const float* theta;
+  float* out;
+  float* out2;
+  int lda, rows, depth, epi;
+};
+
+// One tile of a product phase, compiled as a function of its own that
+// owns its accumulators (passed in by reference they would live in
+// memory).
+template <int BN, bool TRANS>
+__device__ __noinline__ void product_tile(fma::Smem<BN>& sm, const Job j,
+                                          int r0, int b0, int B) {
+  float acc[fma::AccShape<BN>::d0][fma::AccShape<BN>::d1];
+  float unused[fma::AccShape<BN>::d0][fma::AccShape<BN>::d1];
+  fma::products<BN, TRANS, false>(sm, r0, b0, j.rows, j.depth, B, j.a,
+                                   j.lda, j.x, acc, unused);
+  fma::for_entries<BN>(r0, b0, j.rows, B, [&](int r, int b, int t, int e) {
+    const long long i = (long long)r * B + b;
+    const float s = acc[t][e];
+    switch (j.epi) {
+      case kStore: j.out[i] = s; break;
+      case kNegate: j.out[i] = -s; break;
+      case kQdCol: j.out[i] = s - j.theta[r] * j.x[i]; break;
+      case kAddAux: j.out[i] = s + j.aux[i]; break;
+      default: {  // kGrad
+        const float y = j.x[i];
+        const float gr = (s - j.theta[r] * y) + j.aux[i];
+        j.out[i] = gr;
+        j.out2[i] = (y > 0.f || gr < 0.f) ? -gr : 0.f;
+      }
     }
-  }
+  });
+}
+
+// One update tile: num = relu(-Q) y + theta_r y_r + fdn,
+// den = relu(Q) y + fdp, y_new = (num / guard(den)) * y_r; lanes whose
+// state is not 0 (certified or stalled) keep y_r.
+template <int BN>
+__device__ __noinline__ void update_tile(fma::Smem<BN>& sm, int r0, int b0,
+                                         const float* qh, const float* theta,
+                                         const float* fdn, const float* fdp,
+                                         const float* src, float* dst,
+                                         const int* state, int n, int B,
+                                         float den_eps) {
+  float den_acc[fma::AccShape<BN>::d0][fma::AccShape<BN>::d1];
+  float num_acc[fma::AccShape<BN>::d0][fma::AccShape<BN>::d1];
+  fma::products<BN, false, true>(sm, r0, b0, n, n, B, qh, n, src, den_acc,
+                                  num_acc);
+  fma::for_entries<BN>(r0, b0, n, B, [&](int r, int b, int t, int e) {
+    const long long i = (long long)r * B + b;
+    const float y = src[i];
+    float out = y;
+    if (state[b] == kActive) {
+      const float num = (num_acc[t][e] + theta[r] * y) + fdn[i];
+      const float den = den_acc[t][e] + fdp[i];
+      out = (num / guard_den(den, den_eps)) * y;
+    }
+    dst[i] = out;
+  });
 }
 
 // Per-lane partial sums over chunks of kChunk rows: unit (chunk c, 32
-// lanes); thread (row group rg, lane ln) adds rows c*kChunk + rg, +4, ...
-// in ascending order through f(i, b, acc), then the four row groups are
-// added in fixed order into part[(c * K + k) * B + b].
-template <int K, class F>
-__device__ void lane_partials(SolveSmem& sm, int rows, int B, float* part,
+// lanes); thread (row group rg < kRowGroups, lane ln) adds rows
+// c*kChunk + rg, + kRowGroups, ... in ascending order through f(i, b, acc),
+// then the row groups are added in fixed order into
+// part[(c * K + k) * B + b].
+template <int K, int BN, class F>
+__device__ void lane_partials(SolveSmem<BN>& sm, int rows, int B, float* part,
                               F f) {
   const int ln = threadIdx.x % 32, rg = threadIdx.x / 32;
   const int groups = (B + 31) / 32, chunks = n_chunks(rows);
   for (int unit = blockIdx.x; unit < groups * chunks; unit += gridDim.x) {
     const int c = unit / groups, b = (unit % groups) * 32 + ln;
-    float acc[K];
+    if (rg < kRowGroups) {
+      float acc[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) acc[k] = 0.f;
-    if (b < B) {
-      const int end = min(rows, (c + 1) * kChunk);
-      for (int i = c * kChunk + rg; i < end; i += 4) f(i, b, acc);
+      for (int k = 0; k < K; ++k) acc[k] = 0.f;
+      if (b < B) {
+        const int end = min(rows, (c + 1) * kChunk);
+        for (int i = c * kChunk + rg; i < end; i += kRowGroups) f(i, b, acc);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) sm.red[rg][k][ln] = acc[k];
     }
-#pragma unroll
-    for (int k = 0; k < K; ++k) sm.red[rg][k][ln] = acc[k];
     __syncthreads();
     if (rg == 0 && b < B) {
 #pragma unroll
@@ -166,20 +246,22 @@ __device__ void lane_totals(int rows, int B, const float* part, G g) {
   }
 }
 
-// out = Qd_hat x - theta x over every tile of an (n x B) output: the TPU's
-// qd_col (Qd with its diagonal clamped, times x).
-__device__ void qd_times(const TiledSolveArgs& a, SolveSmem& sm,
-                         const float* x, float* out) {
-  for_tiles(a.n, a.B, [&](int r0, int b0) {
-    float acc[4][4], unused[4][4];
-    tile::products<false>(sm.gemm, r0, b0, a.n, a.n, a.B,
-                          tile::RowMajor{a.qh, a.n},
-                          tile::Panel{x, a.B}, acc, unused);
-    store_tile(r0, b0, a.n, a.B, acc,
-               [&](int r, int b, long long e, float s) {
-                 out[e] = s - a.theta[r] * x[e];
-               });
+// A phase of one row-major product: job j over every tile of its output.
+template <int BN>
+__device__ __forceinline__ void product_phase(const TiledSolveArgs& a,
+                                              SolveSmem<BN>& sm,
+                                              const Job& j) {
+  for_tiles<BN>(j.rows, a.B, [&](int r0, int b0) {
+    product_tile<BN, false>(sm.gemm, j, r0, b0, a.B);
   });
+}
+
+// out = Qd_hat x - theta x: the TPU's qd_col (Qd with its diagonal
+// clamped, times x); with kGrad, the accel step's gradient and direction.
+__device__ __forceinline__ Job qd_job(const TiledSolveArgs& a, const float* x,
+                                      float* out, int epi = kQdCol,
+                                      float* out2 = nullptr) {
+  return Job{a.qh, x, a.fd, a.theta, out, out2, a.n, a.n, a.n, epi};
 }
 
 // The four-part verdict at the iterate in ya (PQP_CPU.c:673-687, as the
@@ -187,60 +269,29 @@ __device__ void qd_times(const TiledSolveArgs& a, SolveSmem& sm,
 // Gp U <= Kp_slack, explicit or complementarity gap.  A lane still active
 // that passes is certified at h.  The final check also stamps iters = h on
 // every lane still active.
-__device__ void check_pass(const TiledSolveArgs& a, SolveSmem& sm,
+template <int BN>
+__device__ void check_pass(const TiledSolveArgs& a, SolveSmem<BN>& sm,
                            cg::grid_group& grid, int h, bool final_check) {
   const int n = a.n, m = a.m, B = a.B;
-  // qdy = Qd_hat y - theta y;  v = Gp' y
-  for_tiles2(
+  // qdy = Qd_hat y - theta y;  v = Gp' y + Fp
+  const Job qdy = qd_job(a, a.ya, a.qdy);
+  const Job gpt{a.gp, a.ya, a.fp, nullptr, a.v, nullptr, m, m, n, kAddAux};
+  for_tiles2<BN>(
       n, m, B,
-      [&](int r0, int b0) {
-        float acc[4][4], unused[4][4];
-        tile::products<false>(sm.gemm, r0, b0, n, n, B,
-                              tile::RowMajor{a.qh, n},
-                              tile::Panel{a.ya, B}, acc, unused);
-        store_tile(r0, b0, n, B, acc,
-                   [&](int r, int b, long long e, float s) {
-                     a.qdy[e] = s - a.theta[r] * a.ya[e];
-                   });
-      },
-      [&](int r0, int b0) {
-        float acc[4][4], unused[4][4];
-        tile::products<false>(sm.gemm, r0, b0, m, n, B,
-                              tile::Transposed{a.gp, m},
-                              tile::Panel{a.ya, B}, acc, unused);
-        store_tile(r0, b0, m, B, acc,
-                   [&](int, int, long long e, float s) { a.v[e] = s; });
-      });
+      [&](int r0, int b0) { product_tile<BN, false>(sm.gemm, qdy, r0, b0, B); },
+      [&](int r0, int b0) { product_tile<BN, true>(sm.gemm, gpt, r0, b0, B); });
   grid.sync();
-  // u = -Qp^-1 (v + Fp)
-  for_tiles(m, B, [&](int r0, int b0) {
-    float acc[4][4], unused[4][4];
-    tile::products<false>(sm.gemm, r0, b0, m, m, B,
-                          tile::RowMajor{a.qpi, m},
-                          tile::PanelSum{a.v, a.fp, B}, acc, unused);
-    store_tile(r0, b0, m, B, acc,
-               [&](int, int, long long e, float s) { a.u[e] = -s; });
-  });
+  // u = -Qp^-1 (Gp'y + Fp)
+  product_phase<BN>(a, sm, Job{a.qpi, a.v, nullptr, nullptr, a.u, nullptr,
+                               m, m, m, kNegate});
   grid.sync();
   // w = Gp u;  v = Qp u (v is free again)
-  for_tiles2(
+  const Job gpu{a.gp, a.u, nullptr, nullptr, a.w, nullptr, m, n, m, kStore};
+  const Job qpu{a.qp, a.u, nullptr, nullptr, a.v, nullptr, m, m, m, kStore};
+  for_tiles2<BN>(
       n, m, B,
-      [&](int r0, int b0) {
-        float acc[4][4], unused[4][4];
-        tile::products<false>(sm.gemm, r0, b0, n, m, B,
-                              tile::RowMajor{a.gp, m},
-                              tile::Panel{a.u, B}, acc, unused);
-        store_tile(r0, b0, n, B, acc,
-                   [&](int, int, long long e, float s) { a.w[e] = s; });
-      },
-      [&](int r0, int b0) {
-        float acc[4][4], unused[4][4];
-        tile::products<false>(sm.gemm, r0, b0, m, m, B,
-                              tile::RowMajor{a.qp, m},
-                              tile::Panel{a.u, B}, acc, unused);
-        store_tile(r0, b0, m, B, acc,
-                   [&](int, int, long long e, float s) { a.v[e] = s; });
-      });
+      [&](int r0, int b0) { product_tile<BN, false>(sm.gemm, gpu, r0, b0, B); },
+      [&](int r0, int b0) { product_tile<BN, false>(sm.gemm, qpu, r0, b0, B); });
   grid.sync();
   // rows [0, n): Y'Qd Y, Fd'Y, violations; rows [n, n + m): U'Qp U, Fp'U
   lane_partials<5>(sm, n + m, B, a.part, [&](int i, int b, float* acc) {
@@ -301,7 +352,8 @@ __device__ __forceinline__ void stall_test(const TiledSolveArgs& a, int b,
 // (solver.accel_step; the TPU kernel's accel_step).  diff_sweep: the
 // per-lane movement of the last update sweep, computed here before yb is
 // reused.  Ends with the stall test.
-__device__ void accel_pass(const TiledSolveArgs& a, SolveSmem& sm,
+template <int BN>
+__device__ void accel_pass(const TiledSolveArgs& a, SolveSmem<BN>& sm,
                            cg::grid_group& grid, int h) {
   const int n = a.n, B = a.B;
   float* alpha = a.lane;
@@ -309,20 +361,9 @@ __device__ void accel_pass(const TiledSolveArgs& a, SolveSmem& sm,
   float* diff = a.lane + 2 * B;
   float* keep = a.lane + 3 * B;
   // g = Qd y + Fd (the gradient); p = -g where y > 0 or g < 0
-  for_tiles(n, B, [&](int r0, int b0) {
-    float acc[4][4], unused[4][4];
-    tile::products<false>(sm.gemm, r0, b0, n, n, B,
-                          tile::RowMajor{a.qh, n},
-                          tile::Panel{a.ya, B}, acc, unused);
-    store_tile(r0, b0, n, B, acc, [&](int r, int b, long long e, float s) {
-      const float y = a.ya[e];
-      const float gr = (s - a.theta[r] * y) + a.fd[e];
-      a.g[e] = gr;
-      a.p[e] = (y > 0.f || gr < 0.f) ? -gr : 0.f;
-    });
-  });
+  product_phase<BN>(a, sm, qd_job(a, a.ya, a.g, kGrad, a.p));
   grid.sync();
-  qd_times(a, sm, a.p, a.w);
+  product_phase<BN>(a, sm, qd_job(a, a.p, a.w));
   grid.sync();
   lane_partials<4>(sm, n, B, a.part, [&](int i, int b, float* acc) {
     const long long e = (long long)i * B + b;
@@ -344,7 +385,7 @@ __device__ void accel_pass(const TiledSolveArgs& a, SolveSmem& sm,
        e < (long long)n * B; e += (long long)gridDim.x * blockDim.x)
     a.yb[e] = relu_nan(a.ya[e] + alpha[e % B] * a.p[e]);
   grid.sync();
-  qd_times(a, sm, a.yb, a.w);
+  product_phase<BN>(a, sm, qd_job(a, a.yb, a.w));
   grid.sync();
   lane_partials<3>(sm, n, B, a.part, [&](int i, int b, float* acc) {
     const long long e = (long long)i * B + b;
@@ -367,28 +408,12 @@ __device__ void accel_pass(const TiledSolveArgs& a, SolveSmem& sm,
   grid.sync();
 }
 
-// One update tile, compiled as a function of its own: inlined into this
-// kernel, the same loop ran at half the speed it reaches alone (measured
-// on an H100 at N = 4096, B = 128: 0.71 against 0.35 ms per update, with
-// bit-identical iterates).  It owns its accumulators: passed in by
-// reference they would live in memory.
-__device__ __noinline__ void update_tile(tile::Smem& sm, int r0, int b0,
-                                         const float* qh, const float* theta,
-                                         const float* fdn, const float* fdp,
-                                         const float* src, float* dst,
-                                         const int* state, int n, int B,
-                                         float den_eps) {
-  float den_acc[4][4], num_acc[4][4];
-  tile::products<true>(sm, r0, b0, n, n, B, tile::RowMajor{qh, n},
-                       tile::Panel{src, B}, den_acc, num_acc);
-  tile::update_epilogue(den_acc, num_acc, r0, b0, n, B, theta, fdn,
-                        fdp, 1, src, dst, den_eps, state);
-}
-
-__global__ void __launch_bounds__(tile::kThreads)
+template <int BN>
+__global__ void __launch_bounds__(fma::kThreads, 1)
 tiled_full_solve_kernel(const TiledSolveArgs a) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ __align__(16) SolveSmem sm;
+  extern __shared__ float4 smem4[];
+  SolveSmem<BN>& sm = *reinterpret_cast<SolveSmem<BN>*>(smem4);
   const int n = a.n, B = a.B;
   const long long nB = (long long)n * B;
   const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -418,9 +443,9 @@ tiled_full_solve_kernel(const TiledSolveArgs a) {
     for (int j = 0; j < a.check_every; ++j) {
       const float* src = (j % 2 == 0) ? a.ya : a.yb;
       float* dst = (j % 2 == 0) ? a.yb : a.ya;
-      for_tiles(n, B, [&](int r0, int b0) {
-        update_tile(sm.gemm, r0, b0, a.qh, a.theta, a.fdn, a.fdp, src, dst,
-                    a.state, n, B, a.den_eps);
+      for_tiles<BN>(n, B, [&](int r0, int b0) {
+        update_tile<BN>(sm.gemm, r0, b0, a.qh, a.theta, a.fdn, a.fdp, src,
+                        dst, a.state, n, B, a.den_eps);
       });
       grid.sync();
     }
@@ -437,6 +462,36 @@ tiled_full_solve_kernel(const TiledSolveArgs a) {
       grid.sync();
     }
   }
+}
+
+// One block per tile of the update pass, capped at what fits on the card
+// at once (a cooperative launch needs every block resident).
+template <int BN>
+static cudaError_t launch(TiledSolveArgs& a, cudaStream_t stream) {
+  const auto kernel = tiled_full_solve_kernel<BN>;
+  const int smem = (int)sizeof(SolveSmem<BN>);
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return cudaErrorNotSupported;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      fma::kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int tiles = ((a.n + fma::BM - 1) / fma::BM) * ((a.B + BN - 1) / BN);
+  const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
+                                    dim3(fma::kThreads), params, smem,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace pqp
@@ -468,30 +523,10 @@ extern "C" int full_solve_tiled_f32(
   a.check_every = check_every; a.accel = accel;
   a.eaj = eaj; a.erj = erj; a.strict = strict; a.den_eps = den_eps;
   a.gap_comp = gap_comp;
-
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, pqp::tiled_full_solve_kernel, pqp::tile::kThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // one block per tile of the update pass, capped at what fits on the card
-  // at once (a cooperative launch needs every block resident).  Measured on
-  // an H100 at N = 4096, M = 1024, B = 128: 4.5% faster than one block per
-  // tile of the widest check phase (256 against 320 blocks), 1.8x faster
-  // than one block per SM
-  const int lt = (B + pqp::tile::BL - 1) / pqp::tile::BL;
-  const int tiles = ((n + pqp::tile::BM - 1) / pqp::tile::BM) * lt;
-  const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)pqp::tiled_full_solve_kernel,
-                                    dim3(grid), dim3(pqp::tile::kThreads),
-                                    params, 0,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (pqp::fma::tile_lanes(B)) {
+    case 32: return (int)pqp::launch<32>(a, s);
+    case 64: return (int)pqp::launch<64>(a, s);
+    default: return (int)pqp::launch<128>(a, s);
+  }
 }

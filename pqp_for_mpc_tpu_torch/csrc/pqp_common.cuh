@@ -1,6 +1,6 @@
 // Helpers shared by the kernels (pqp_iterations.cu, full_solve.cu and,
-// through tile_gemm.cuh and distinct_common.cuh, the streamed and the
-// distinct-geometry kernels).
+// through tile_gemm.cuh, fma_tile.cuh and distinct_common.cuh, the
+// streamed and the distinct-geometry kernels).
 //
 // Layout conventions, as the Python wrappers pass them:
 //  * matrices are row-major float32; in shared memory each row is padded to
@@ -99,10 +99,19 @@ __device__ __forceinline__ float guard_den(float den, float den_eps) {
 // max(v, 0) that keeps NaN (see guard_den).
 __device__ __forceinline__ float relu_nan(float v) { return v < 0.f ? 0.f : v; }
 
+// max(v, 0) in one instruction that keeps NaN (max.NaN, sm_80+), as
+// relu_nan does; a -0 entry may come out +0, a zero all the same.
+__device__ __forceinline__ float relu_max(float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(v));
+  return r;
+}
+
 // One multiplicative update of a lane's iterate,
 //     y <- y * (Qdn y + Fdn) / guard(Qdp y + Fdp),
-// with both splits in shared memory (row stride ld).  Both kernels run this
-// body, so their iterates agree bit for bit.
+// with both splits in shared memory (row stride ld): K1's update.  K2 sums
+// each entry in the same order, 4 rows x 4 lanes per thread
+// (pqp_iterations.cu).
 template <int NMAX>
 __device__ __forceinline__ void update_lane(const float* qdn, const float* qdp,
                                             int ld, const LanePanel& fdn,

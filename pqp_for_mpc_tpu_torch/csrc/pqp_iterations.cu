@@ -6,26 +6,39 @@
 // updates
 //     Y <- Y * ((Qd^- + th) Y + Fd^-) / max((Qd^+ + th) Y + Fd^+, den_eps).
 //
-// Design.  One thread per batch lane; a block of 128 lanes stages both
-// splits in shared memory (2 N^2 floats, rows padded to 4: 6.3 KB at
-// N = 28).  The lane's y[N] lives in registers for all num_iters updates,
-// so Y is read and written once per launch.  The panels are batch-last,
-// Y[i * B + b], so for every row i the 32 lanes of a warp read 32
-// neighbouring floats.  Templated on NMAX (32, 64, 128): every loop over a
-// row's entries unrolls, so y stays in registers; at NMAX = 32 the loop
-// over rows unrolls too, above it the row loop stays rolled (a fully
-// unrolled 128 x 128 body takes ptxas many minutes) and the new iterate
-// goes through local memory.  N above 128 is refused by the wrapper.
+// Design: register blocking.  A block owns a tile of lanes and every row:
+// both splits staged once in shared memory, transposed (q[k][r], rows
+// padded to a multiple of R with zeros), and the block's (N x LB) tile of
+// Y in shared memory, ping-ponging between two buffers with one
+// __syncthreads per update.  A thread owns R = 4 rows x L = 4 lanes: for
+// each depth k it loads R entries of each split (one float4, the same for
+// every thread of its row group) and L entries of the iterate (one
+// float4), and does 2 R L = 32 fused multiply-adds into 32 independent
+// accumulators.  Its R x L entries of Fd^- and Fd^+ stay in registers for
+// the launch, so Y and the forcing panels are read once and Y written once
+// per launch, each thread's entries in one batch of vector loads (the
+// wrapper hands 16-byte aligned panels).  The block is (N_pad / R) row
+// groups x LG lane groups, LG the largest power of two with at most 256
+// threads, at most 32 (ops/kernels.py: k2_plan): at N = 28, 7 x 32
+// threads over 128 lanes.  Each entry's sum runs in ascending k from 0
+// with fused multiply-adds, then adds Fd, as K1's update_lane does (the
+// previous design's bits), so a relaunch repeats every bit.  N above 128
+// is refused.  R = L = 4 is the fastest thread tile measured on an H100
+// (PERF.md): 4 x 2, 2 x 4 and smaller tiles, and this tile with its
+// registers capped for 3 or 4 blocks per SM, ran slower.
 //
-// What bounds it on an H100.  Per update a lane does 2 N^2 FMAs and reads
-// Fd^- and Fd^+ (2 N * 4 bytes): at N = 28, 1,568 FMAs against 224 bytes,
-// 14 flop/byte, under the card's float32 ridge of about 20 (67 TFLOP/s
-// over 3.35 TB/s) when the Fd panels stream from HBM, far over it when
-// they sit in L1/L2.  Each float4 broadcast load from shared memory feeds
-// 4 FMAs, so shared-memory issue is not the limit.  Measured on an H100
-// SXM (700 W) at B = 2^22, 8 updates: 7.85 ms, 20% of the FMA peak and at
-// most 1.1 TB/s — neither bound; the lane's dependent FMA chains with 16
-// warps per SM (128 registers) leave the loop latency-bound.
+// What bounds it on an H100.  Per update a lane does 2 N^2 FMAs (1,568 at
+// N = 28) against its 2 N forcing entries, which are read once per launch
+// here: the function is bound by its float32 operations (8 updates at
+// B = 2^22: 105 GFLOP).  The previous design (one thread per lane, y in
+// registers, the split rows read as broadcast float4 loads: one load per 4
+// FMAs, Fd re-read from global memory on every update) ran at 20% of the
+// FMA peak.  Here a load feeds 10.7 FMAs on average and each thread has 32
+// independent chains, so the FMA pipe is the design's ceiling; measured on
+// an H100 SXM (700 W) it runs 8 updates at B = 2^22 in 3.9 ms, 41% of the
+// FMA peak.  The likely limit: 128 registers leave 2 blocks of 7 warps
+// per SM, so a block's load and store phases hide behind only one other
+// block's updates.
 //
 // Semantics match pqp_for_mpc_tpu_torch/ops/kernels.py:
 // fused_pqp_iterations_reference up to float32 summation order.
@@ -35,9 +48,62 @@
 #include "pqp_common.cuh"
 
 namespace pqp {
+namespace k2 {
 
-template <int NMAX>
-__global__ void __launch_bounds__(kLanesPerBlock)
+constexpr int R = 4;  // rows of a thread
+constexpr int L = 4;  // lanes of a thread
+constexpr int kMaxThreads = 256;
+constexpr int kMaxLaneGroups = 32;
+
+// 4 consecutive floats at a 16-byte aligned address in one access.
+__device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// This thread's L lanes of row r of a batch-last (n x B) panel: one
+// vector load when the lanes are whole and aligned (B % L == 0), else one
+// load per lane; lanes past B read 0.  A shared panel (lane = 0) repeats
+// its entry r.
+__device__ __forceinline__ void panel_lanes(const float* p, int lane,
+                                            long long r, long long b, int B,
+                                            float (&v)[L]) {
+  if (!lane) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) v[j] = p[r];
+  } else if (B % L == 0 && b + L <= B) {
+    load(p + r * B + b, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < L; ++j) v[j] = (b + j < B) ? p[r * B + b + j] : 0.f;
+  }
+}
+
+struct Plan {
+  int np, row_groups, lane_groups, lanes, threads;
+  size_t smem;
+};
+
+__host__ __device__ inline Plan plan(int n) {
+  Plan p;
+  p.np = (n + R - 1) / R * R;
+  p.row_groups = p.np / R;
+  int lg = 1;
+  while (2 * lg <= kMaxLaneGroups && 2 * lg * p.row_groups <= kMaxThreads)
+    lg *= 2;
+  p.lane_groups = lg;
+  p.lanes = L * lg;
+  p.threads = p.row_groups * lg;
+  // both splits (n x np) and two (n x lanes) iterate tiles
+  p.smem = (2 * (size_t)n * p.np + 2 * (size_t)n * p.lanes) * sizeof(float);
+  return p;
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1)
 pqp_iterations_kernel(const float* __restrict__ qdn,
                       const float* __restrict__ qdp,
                       const float* __restrict__ fdn,
@@ -45,53 +111,98 @@ pqp_iterations_kernel(const float* __restrict__ qdn,
                       const float* __restrict__ y_in,
                       float* __restrict__ y_out, int n, int B,
                       int num_iters, float den_eps) {
+  const Plan pl = plan(n);
+  const int np = pl.np, lb = pl.lanes;
   extern __shared__ float4 smem4[];
-  float* s_qdn = reinterpret_cast<float*>(smem4);
-  const int ld = round4(n);
-  float* s_qdp = s_qdn + n * ld;
-  stage_matrix(s_qdn, qdn, n, n, ld, false);
-  stage_matrix(s_qdp, qdp, n, n, ld, false);
+  float* s_qn = reinterpret_cast<float*>(smem4);  // s_qn[k * np + r]
+  float* s_qp = s_qn + n * np;
+  float* ys = s_qp + n * np;                      // 2 x (n x lb)
+#pragma unroll 4
+  for (int e = threadIdx.x; e < n * np; e += blockDim.x) {
+    const int k = e / np, r = e % np;
+    s_qn[e] = r < n ? qdn[r * n + k] : 0.f;
+    s_qp[e] = r < n ? qdp[r * n + k] : 0.f;
+  }
+  const long long b0 = (long long)blockIdx.x * lb;
+  const int rg = threadIdx.x / pl.lane_groups;
+  const int lg = threadIdx.x % pl.lane_groups;
+  const int r0 = R * rg, c0 = L * lg;
+  // this thread's R x L entries of Y and of both forcing panels, all loads
+  // issued together
+  float fn[R][L], fp[R][L], y0[R][L];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = r0 + i < n ? r0 + i : n - 1;  // rows past n: unused
+    panel_lanes(y_in, 1, r, b0 + c0, B, y0[i]);
+    panel_lanes(fdn, fd_lane, r, b0 + c0, B, fn[i]);
+    panel_lanes(fdp, fd_lane, r, b0 + c0, B, fp[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (r0 + i < n) store(ys + (r0 + i) * lb + c0, y0[i]);
   __syncthreads();
 
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const LanePanel Fn = lane_panel(fdn, fd_lane, B, b);
-  const LanePanel Fp = lane_panel(fdp, fd_lane, B, b);
-  const LanePanel Yin = lane_panel(y_in, 1, B, b);
-
-  float y[NMAX];
+  int cur = 0;
+  for (int it = 0; it < num_iters; ++it) {
+    const float* yc = ys + cur * n * lb;
+    float* yn = ys + (cur ^ 1) * n * lb;
+    float num[R][L], den[R][L];
 #pragma unroll
-  for (int i = 0; i < NMAX; ++i) y[i] = (i < n) ? Yin[i] : 0.f;
-
-  for (int it = 0; it < num_iters; ++it)
-    update_lane<NMAX>(s_qdn, s_qdp, ld, Fn, Fp, y, n, den_eps);
-
-  float* out = y_out + b;
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-  for (int i = 0; i < NMAX; ++i)
-    if (i < n) out[(long long)i * B] = y[i];
-}
-
-template <int NMAX>
-static cudaError_t launch_iterations(const float* qdn, const float* qdp,
-                                     const float* fdn, const float* fdp,
-                                     int fd_lane, const float* y,
-                                     float* y_out, int n, int B,
-                                     int num_iters, float den_eps,
-                                     cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)n * round4(n) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pqp_iterations_kernel<NMAX>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+      for (int j = 0; j < L; ++j) num[i][j] = den[i][j] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) {
+      float qa[R], qb[R], yv[L];
+      load(s_qn + k * np + r0, qa);
+      load(s_qp + k * np + r0, qb);
+      load(yc + k * lb + c0, yv);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          num[i][j] = fmaf(qa[i], yv[j], num[i][j]);
+          den[i][j] = fmaf(qb[i], yv[j], den[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = r0 + i;
+      if (r >= n) continue;
+      float y[L];
+      load(yc + r * lb + c0, y);
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        const float nu = num[i][j] + fn[i][j];
+        const float de = guard_den(den[i][j] + fp[i][j], den_eps);
+        y[j] = (nu / de) * y[j];
+      }
+      store(yn + r * lb + c0, y);
+    }
+    __syncthreads();
+    cur ^= 1;
   }
-  const dim3 grid((B + kLanesPerBlock - 1) / kLanesPerBlock);
-  pqp_iterations_kernel<NMAX><<<grid, kLanesPerBlock, smem, stream>>>(
-      qdn, qdp, fdn, fdp, fd_lane, y, y_out, n, B, num_iters, den_eps);
-  return cudaGetLastError();
+
+  // this thread's entries of the result, from the tile
+  const float* yc = ys + cur * n * lb;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = r0 + i;
+    if (r >= n) continue;
+    float y[L];
+    load(yc + r * lb + c0, y);
+    const long long b = b0 + c0;
+    if (B % L == 0 && b + L <= B) {
+      store(y_out + r * (long long)B + b, y);
+    } else {
+#pragma unroll
+      for (int j = 0; j < L; ++j)
+        if (b + j < B) y_out[r * (long long)B + b + j] = y[j];
+    }
+  }
 }
 
+}  // namespace k2
 }  // namespace pqp
 
 extern "C" int pqp_iterations_f32(const float* qdn, const float* qdp,
@@ -99,19 +210,19 @@ extern "C" int pqp_iterations_f32(const float* qdn, const float* qdp,
                                   int fd_lane, const float* y, float* y_out,
                                   int n, int B, int num_iters, float den_eps,
                                   void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  if (n <= 32)
-    return (int)pqp::launch_iterations<32>(qdn, qdp, fdn, fdp, fd_lane, y,
-                                           y_out, n, B, num_iters, den_eps, s);
-  if (n <= 64)
-    return (int)pqp::launch_iterations<64>(qdn, qdp, fdn, fdp, fd_lane, y,
-                                           y_out, n, B, num_iters, den_eps, s);
-  if (n <= 128)
-    return (int)pqp::launch_iterations<128>(qdn, qdp, fdn, fdp, fd_lane, y,
-                                            y_out, n, B, num_iters, den_eps,
-                                            s);
-  return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > 128 || B < 1) return (int)cudaErrorInvalidValue;
+  const pqp::k2::Plan pl = pqp::k2::plan(n);
+  if (pl.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pqp::k2::pqp_iterations_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((B + pl.lanes - 1) / pl.lanes);
+  pqp::k2::pqp_iterations_kernel<<<grid, pl.threads, pl.smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      qdn, qdp, fdn, fdp, fd_lane, y, y_out, n, B, num_iters, den_eps);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* pqp_error_string(int code) {

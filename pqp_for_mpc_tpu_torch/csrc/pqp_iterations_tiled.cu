@@ -23,7 +23,7 @@
 // kernel stays an ordinary grid of independent blocks.  The wrapper never
 // writes its input; the last update lands in y_out.
 //   float32 mode: a block computes a 32-row x 64-lane tile of num and den
-//   together on the CUDA cores (tile_gemm.cuh, shared with K4): each staged
+//   together on the CUDA cores (tile_gemm.cuh): each staged
 //   Q entry feeds both relu parts, each staged y entry 32 rows.
 //   bfloat16 mode: the two products on the tensor cores.  Its arithmetic is
 //   exactly a bf16 MMA with float32 accumulation, mma.sync.m16n8k16: A is a
@@ -75,10 +75,10 @@ tiled_update_kernel(const float* q, const float* theta, const float* fdn,
   __shared__ __align__(16) tile::Smem sm;
   const int r0 = blockIdx.y * tile::BM, b0 = blockIdx.x * tile::BL;
   float den_acc[4][4], num_acc[4][4];
-  tile::products<true>(sm, r0, b0, n, n, B, tile::RowMajor{q, n},
-                       tile::Panel{y_in, B}, den_acc, num_acc);
+  tile::products(sm, r0, b0, n, n, B, tile::RowMajor{q, n},
+                 tile::Panel{y_in, B}, den_acc, num_acc);
   tile::update_epilogue(den_acc, num_acc, r0, b0, n, B, theta, fdn,
-                        fdp, fd_lane, y_in, y_out, den_eps, nullptr);
+                        fdp, fd_lane, y_in, y_out, den_eps);
 }
 
 namespace tc {

@@ -1,5 +1,5 @@
-// Tiled products shared by the two streamed kernels (pqp_iterations_tiled.cu,
-// full_solve_tiled.cu).
+// The SIMT tile product of K3's float32 mode (pqp_iterations_tiled.cu);
+// K4 runs its products on its own float32 tile (fma_tile.cuh).
 //
 // One block of 128 threads computes a BM x BL = 32 x 64 tile of an output
 // C = A X: 32 rows of a row-major matrix A (rows x depth) against 64 lanes
@@ -10,11 +10,10 @@
 // fused multiply-adds, reading both operands as float4.  Each thread sums
 // its entries in ascending k, so a result is the same from run to run.
 //
-// SPLIT mode accumulates the two relu parts of A at once,
+// It accumulates the two relu parts of A at once,
 //     acc0 += relu(A) X,   acc1 += relu(-A) X,
 // the on-the-fly splits of Qd_hat that the update needs (relu_nan keeps a
-// NaN entry NaN, as jnp.maximum does).  Float32 only: K3's bf16 mode runs
-// on the tensor cores (pqp_iterations_tiled.cu).
+// NaN entry NaN, as jnp.maximum does).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,19 +39,8 @@ struct Smem {
 struct RowMajor {
   const float* p;
   int ld;
-  static constexpr bool kTrans = false;
   __device__ __forceinline__ float operator()(int r, int k) const {
     return p[(long long)r * ld + k];
-  }
-};
-
-// A(r, k) = p[k * ld + r]: the transpose of a row-major matrix (Gp').
-struct Transposed {
-  const float* p;
-  int ld;
-  static constexpr bool kTrans = true;
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    return p[(long long)k * ld + r];
   }
 };
 
@@ -65,17 +53,6 @@ struct Panel {
   }
 };
 
-// X(k, b) = p[k * B + b] + q[k * B + b] (v + Fp of the check).
-struct PanelSum {
-  const float* p;
-  const float* q;
-  int B;
-  __device__ __forceinline__ float operator()(int k, int b) const {
-    const long long e = (long long)k * B + b;
-    return p[e] + q[e];
-  }
-};
-
 // This thread's sub-tile: rows r0 + 4 * row_group() + i, lanes
 // b0 + 4 * lane_group() + j, i, j < 4.
 __device__ __forceinline__ int row_group() { return threadIdx.x / 16; }
@@ -84,7 +61,7 @@ __device__ __forceinline__ int lane_group() { return threadIdx.x % 16; }
 // Accumulate one tile of A (rows x depth) times X (depth x B) at
 // (r0, b0).  Entries past rows/depth/B are staged as zeros.  Every thread
 // of the block must call it (it synchronises the block).
-template <bool SPLIT, class ALoad, class XLoad>
+template <class ALoad, class XLoad>
 __device__ __forceinline__ void products(Smem& sm, int r0, int b0, int rows,
                                          int depth, int B, const ALoad& A,
                                          const XLoad& X,
@@ -101,22 +78,11 @@ __device__ __forceinline__ void products(Smem& sm, int r0, int b0, int rows,
     // stage A: neighbouring threads read neighbouring addresses
 #pragma unroll
     for (int s = 0; s < (BM * BK) / kThreads; ++s) {
-      int rr, kk;
-      if (ALoad::kTrans) {
-        rr = t % BM;
-        kk = t / BM + (kThreads / BM) * s;
-      } else {
-        kk = t % BK;
-        rr = t / BK + (kThreads / BK) * s;
-      }
+      const int kk = t % BK, rr = t / BK + (kThreads / BK) * s;
       const int r = r0 + rr, k = k0 + kk;
       const float v = (r < rows && k < depth) ? A(r, k) : 0.f;
-      if (SPLIT) {
-        sm.a[0][kk][rr] = relu_nan(v);
-        sm.a[1][kk][rr] = relu_nan(-v);
-      } else {
-        sm.a[0][kk][rr] = v;
-      }
+      sm.a[0][kk][rr] = relu_nan(v);
+      sm.a[1][kk][rr] = relu_nan(-v);
     }
     // stage X
 #pragma unroll
@@ -137,16 +103,14 @@ __device__ __forceinline__ void products(Smem& sm, int r0, int b0, int rows,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc0[i][j] = fmaf(av[i], xv[j], acc0[i][j]);
-      if (SPLIT) {
-        const float4 n4 =
-            *reinterpret_cast<const float4*>(&sm.a[1][kk][4 * tr]);
-        const float nv[4] = {n4.x, n4.y, n4.z, n4.w};
+      const float4 n4 =
+          *reinterpret_cast<const float4*>(&sm.a[1][kk][4 * tr]);
+      const float nv[4] = {n4.x, n4.y, n4.z, n4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc1[i][j] = fmaf(nv[i], xv[j], acc1[i][j]);
-      }
+        for (int j = 0; j < 4; ++j)
+          acc1[i][j] = fmaf(nv[i], xv[j], acc1[i][j]);
     }
     __syncthreads();
   }
@@ -154,14 +118,13 @@ __device__ __forceinline__ void products(Smem& sm, int r0, int b0, int rows,
 
 // The multiplicative update of one tile's entries from its split products:
 //     num = relu(-Q) y + th_i y_i + fdn,  den = relu(Q) y + fdp,
-//     y_new = (num / guard(den)) * y_i.  With a lane_state array, lanes
-// whose state is not 0 (certified or stalled) keep y_i.
+//     y_new = (num / guard(den)) * y_i.
 // fd_lane selects per-lane (n x B) or shared (n) forcing panels.
 __device__ __forceinline__ void update_epilogue(
     const float (&den_acc)[4][4], const float (&num_acc)[4][4], int r0,
     int b0, int n, int B, const float* theta,
     const float* fdn, const float* fdp, int fd_lane, const float* y_in,
-    float* y_out, float den_eps, const int* lane_state) {
+    float* y_out, float den_eps) {
   const int tr = row_group(), tl = lane_group();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -175,14 +138,10 @@ __device__ __forceinline__ void update_epilogue(
       const long long e = (long long)r * B + b;
       const float y = y_in[e];
       const long long f = fd_lane ? e : (long long)r;
-      float out = y;
-      if (lane_state == nullptr || lane_state[b] == 0) {
-        const float ty = th * y;
-        const float num = (num_acc[i][j] + ty) + fdn[f];
-        const float den = den_acc[i][j] + fdp[f];
-        out = (num / guard_den(den, den_eps)) * y;
-      }
-      y_out[e] = out;
+      const float ty = th * y;
+      const float num = (num_acc[i][j] + ty) + fdn[f];
+      const float den = den_acc[i][j] + fdp[f];
+      y_out[e] = (num / guard_den(den, den_eps)) * y;
     }
   }
 }

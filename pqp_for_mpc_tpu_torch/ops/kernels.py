@@ -2,9 +2,11 @@
 
 The counterpart of ``pqp_for_mpc_tpu/ops/kernels.py:fused_pqp_iterations``
 (a Pallas kernel that keeps both split matrices and a Y panel in VMEM).
-Here the kernel is ``csrc/pqp_iterations.cu``: one CUDA thread per batch
-lane, both splits staged in shared memory, the lane's ``y`` in registers
-for all ``num_iters`` updates (see the note at the top of the source).
+Here the kernel is ``csrc/pqp_iterations.cu``, register-blocked: a block
+owns a tile of lanes and every row, both splits and its tile of Y in shared
+memory for all ``num_iters`` updates; a thread computes 4 rows x 4 lanes
+with its forcing entries in registers (:func:`k2_plan`; see the note at the
+top of the source).
 
 Dispatch: a CPU tensor goes to :func:`fused_pqp_iterations_reference`, the
 plain PyTorch version; a CUDA tensor launches the kernel, and a failed
@@ -36,6 +38,36 @@ def fits_resident(n: int) -> bool:
     return 1 <= n <= N_MAX and 2 * n * _round4(n) * 4 <= SMEM_LIMIT_BYTES
 
 
+#: a K2 thread's rows and lanes, and the most threads and lane groups of a
+#: block (``csrc/pqp_iterations.cu``: ``R``, ``L``, ``kMaxThreads``,
+#: ``kMaxLaneGroups``)
+K2_ROWS, K2_LANES, K2_MAX_THREADS, K2_MAX_LANE_GROUPS = 4, 4, 256, 32
+
+
+def k2_plan(n: int, B: int) -> dict:
+    """K2's launch plan for ``Y (n, B)``, as the kernel computes it: rows
+    padded to a multiple of ``K2_ROWS``, one row group per ``K2_ROWS`` rows,
+    the largest power-of-two count of lane groups (``K2_LANES`` lanes each)
+    that keeps the block within ``K2_MAX_THREADS`` threads and
+    ``K2_MAX_LANE_GROUPS`` groups, one block per lane tile; shared memory
+    holds both splits (n x padded n) and two (n x lanes) iterate tiles."""
+    if not fits_resident(n) or B < 1:
+        raise ValueError(f"k2_plan needs 1 <= n <= {N_MAX} and B >= 1, got "
+                         f"{n}, {B}")
+    rows = -(-n // K2_ROWS) * K2_ROWS
+    row_groups = rows // K2_ROWS
+    lane_groups = 1
+    while (2 * lane_groups <= K2_MAX_LANE_GROUPS
+           and 2 * lane_groups * row_groups <= K2_MAX_THREADS):
+        lane_groups *= 2
+    lanes = K2_LANES * lane_groups
+    return dict(rows_per_thread=K2_ROWS, lanes_per_thread=K2_LANES,
+                row_groups=row_groups, lane_groups=lane_groups,
+                threads=row_groups * lane_groups, lanes_per_block=lanes,
+                blocks=-(-B // lanes),
+                smem_bytes=4 * (2 * n * rows + 2 * n * lanes))
+
+
 def _matrix(t: torch.Tensor, shape: tuple, name: str,
             device: torch.device) -> torch.Tensor:
     if t.device != device or t.dtype != torch.float32:
@@ -63,6 +95,13 @@ def _panel(t: torch.Tensor, rows: int, B: int, name: str,
         return t.contiguous(), 1
     raise ValueError(f"{name}: expected ({rows},), ({rows}, 1) or "
                      f"({rows}, {B}), got {tuple(t.shape)}")
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start 16-byte aligned
+    (a contiguous view at an odd storage offset): the kernels read such
+    operands as 16-byte vectors."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -126,6 +165,8 @@ def fused_pqp_iterations(Qdn_theta: torch.Tensor, Qdp_theta: torch.Tensor,
         fdp = fdp if fdp_lane else fdp[:, None].expand(N, B).contiguous()
         fdn_lane = 1
     y = _matrix(Y, (N, B), "Y", dev)
+    # the kernel reads each thread's lanes of Y and the panels as vectors
+    fdn, fdp, y = (_aligned16(t) for t in (fdn, fdp, y))
     out = torch.empty_like(y)
     if B == 0:
         return out

@@ -10,8 +10,11 @@ no lane is active; and the final check.  The matrix is ``Qd_hat`` of
 :func:`pqp_for_mpc_tpu_torch.ops.tiled_kernel.streamed_matrix`, its splits
 rebuilt by relu.
 
-The kernel is ``csrc/full_solve_tiled.cu`` (a cooperative persistent
-kernel; see the note at the top of the source);
+The kernel is ``csrc/full_solve_tiled.cu``, a cooperative persistent
+kernel whose every matrix phase runs one float32 tile on the CUDA cores
+(``csrc/fma_tile.cuh``, a ``cp.async`` ring) over the tiles of
+:func:`k4_plan`: 32 rows as wide as the batch, so at B <= 128 an update
+reads each row of ``Qd_hat`` once (see the note at the top of the source);
 :func:`fused_full_solve_tiled_reference` is its plain PyTorch version, the
 TPU kernel's body vectorised over the batch.  Outputs and lane codes are
 K1's (:mod:`pqp_for_mpc_tpu_torch.ops.solve_kernel`).  Restrictions, as the
@@ -32,7 +35,8 @@ import torch
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
 from pqp_for_mpc_tpu_torch.ops import build
-from pqp_for_mpc_tpu_torch.ops.kernels import _matrix, _on_cuda
+from pqp_for_mpc_tpu_torch.ops.kernels import (_aligned16, _matrix,
+                                               _on_cuda)
 from pqp_for_mpc_tpu_torch.ops.solve_kernel import (LANE_CERTIFIED,
                                                     LANE_MAX_ITERS,
                                                     LANE_STALLED,
@@ -42,6 +46,33 @@ from pqp_for_mpc_tpu_torch.ops.tiled_kernel import streamed_matrix
 #: rows of one partial per-lane sum in the kernel (``kChunk``) and the most
 #: sums one of its lane phases carries (``kMaxSums``)
 _CHUNK, _MAX_SUMS = 256, 5
+
+
+#: the kernel's tile rows, threads, ring stages and slab depth
+#: (``csrc/fma_tile.cuh``: ``BM``, ``kThreads``, ``kStages``, ``BK``)
+_TILE_ROWS, _THREADS, _STAGES, _BK = 32, 256, 3, 64
+
+
+def k4_plan(n: int, m: int, B: int) -> dict:
+    """K4's tile plan for ``n`` constraints, ``m`` variables and ``B``
+    lanes, as the kernel computes it: 32-row tiles of the narrowest lane
+    width (32, 64 or 128) that holds the batch, else 128; the grid is one
+    block per update tile, capped on the card at the blocks that fit at
+    once.  ``q_reads_per_update`` is how often an update streams each row
+    of ``Qd_hat`` (once per lane tile); ``vector_staging`` whether every
+    product stages 16-byte chunks (n, m and B multiples of 4) rather than
+    entry by entry."""
+    if n < 1 or m < 1 or B < 1:
+        raise ValueError(f"k4_plan needs n, m, B >= 1, got {n}, {m}, {B}")
+    lanes = 32 if B <= 32 else 64 if B <= 64 else 128
+    lane_tiles = -(-B // lanes)
+    tiles = lambda rows: -(-rows // _TILE_ROWS) * lane_tiles
+    a_slab = max(_TILE_ROWS * (_BK + 4), _BK * (_TILE_ROWS + 4))
+    return dict(tile_rows=_TILE_ROWS, tile_lanes=lanes, threads=_THREADS,
+                blocks=tiles(n), check_tiles=tiles(n) + tiles(m),
+                q_reads_per_update=lane_tiles,
+                smem_bytes=4 * _STAGES * (a_slab + _BK * lanes),
+                vector_staging=n % 4 == 0 and m % 4 == 0 and B % 4 == 0)
 
 
 def _check_args(check_every: int) -> None:
@@ -190,6 +221,10 @@ def fused_full_solve_tiled(Qd, theta, Gp, Qp, Qp_inv, Fp, Fd, Fdp, Fdn,
     panels = [lanes(Fp, M, "Fp"), lanes(Fd, N, "Fd"), lanes(Fdp, N, "Fdp"),
               lanes(Fdn, N, "Fdn"), lanes(Kp_slack, N, "Kp_slack"),
               lanes(Mp, 1, "Mp"), lanes(Md, 1, "Md"), lanes(Y0, N, "Y0")]
+    # the tile stages the matrices in 16-byte chunks; the kernel reads the
+    # panels entry by entry, and the tile's right-hand sides are the
+    # scratch below
+    mats = [_aligned16(t) for t in mats]
     f32 = dict(dtype=torch.float32, device=dev)
     y = torch.empty((N, B), **f32)
     u = torch.empty((M, B), **f32)

@@ -22,7 +22,10 @@ values that agree to rounding near the optimum, so two correct summation
 orders can take different steps and a rare lane's trajectory (never its
 state or U bar) drifts further.  K5, K6 and K8 are held like K1 and K4,
 K7 like K3.  Every kernel whose reductions run in a fixed order repeats
-every bit on a second launch; the tests of K4–K8 check it.
+every bit on a second launch; the tests of K2 and K4–K8 check it.  K2 and
+K4 also carry a NaN lane of Y to NaN where the plain version does, and no
+further, and take operands that are contiguous views at a storage offset
+that is not 16-byte aligned, with the bits of an aligned launch.
 """
 
 import dataclasses
@@ -71,6 +74,16 @@ def _workload(dev, H, B, per_lane_kp=False):
     return primal, dualize(primal)
 
 
+def _at_odd_offset(t):
+    """A contiguous view of a copy of ``t`` one float into its storage, so
+    its data starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    view = buf[1:].view(t.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
 def _bar(iters, check_every):
     bar = torch.clamp(iters // 5, min=5)
     return -(-bar // check_every) * check_every
@@ -95,6 +108,68 @@ def test_k2_kernel_matches_plain(dev, H, B, shared):
     assert kernels.fused_pqp_iterations.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
+
+
+def _k2_inputs(dev, case):
+    """(Qdn, Qdp, Fdn, Fdp, Y) of one K2 edge case: N = 1 (a random 1 x 1
+    problem), N = 128 (horizon 32, the largest resident N), a single lane,
+    and a batch that is not a multiple of the block's lanes (N = 64: 64
+    lanes per block, B = 129)."""
+    rng = np.random.default_rng(2)
+    if case == "n1":
+        B = 300
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        return (t([[0.5]]), t([[2.0]]), t(rng.uniform(0.1, 1.0, (1, B))),
+                t(rng.uniform(0.1, 1.0, (1, B))),
+                t(rng.uniform(0.01, 10.0, (1, B))))
+    H, B = {"n128": (32, 200), "b1": (7, 1), "ragged_b129": (16, 129)}[case]
+    primal, dual = _workload(dev, H, B)
+    Y = torch.as_tensor(rng.uniform(0.01, 10.0, (dual.n_con, B))
+                        .astype(np.float32), device=dev)
+    return dual.Qdn_theta, dual.Qdp_theta, dual.Fdn, dual.Fdp, Y
+
+
+@pytest.mark.parametrize("case", ["n1", "n128", "b1", "ragged_b129"])
+def test_k2_edges_match_plain_and_repeat_bits(dev, case):
+    args = _k2_inputs(dev, case)
+    before = kernels.fused_pqp_iterations.launches
+    got = kernels.fused_pqp_iterations(*args, num_iters=8, den_eps=1e-30)
+    want = kernels.fused_pqp_iterations_reference(*args, num_iters=8,
+                                                  den_eps=1e-30)
+    again = kernels.fused_pqp_iterations(*args, num_iters=8, den_eps=1e-30)
+    torch.cuda.synchronize()
+    assert kernels.fused_pqp_iterations.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert bool((again == got).all())
+
+
+def test_k2_takes_panels_at_an_odd_offset(dev):
+    # per-lane panels and B % 4 == 0: the kernel reads them as float4
+    qdn, qdp, fdn, fdp, Y = _k2_inputs(dev, "n128")
+    assert fdn.shape == Y.shape and Y.shape[1] % 4 == 0
+    want = kernels.fused_pqp_iterations(qdn, qdp, fdn, fdp, Y, num_iters=8,
+                                        den_eps=1e-30)
+    got = kernels.fused_pqp_iterations(
+        qdn, qdp, *(_at_odd_offset(t) for t in (fdn, fdp, Y)), num_iters=8,
+        den_eps=1e-30)
+    torch.cuda.synchronize()
+    assert bool((got == want).all())
+
+
+def test_k2_carries_a_nan_lane_like_plain(dev):
+    primal, dual = _workload(dev, 7, 300)
+    Y = torch.as_tensor(np.random.default_rng(1).uniform(
+        0.01, 10.0, (dual.n_con, 300)).astype(np.float32), device=dev)
+    Y[3, 130] = float("nan")
+    args = (dual.Qdn_theta, dual.Qdp_theta, dual.Fdn, dual.Fdp, Y)
+    got = kernels.fused_pqp_iterations(*args, num_iters=8, den_eps=1e-30)
+    want = kernels.fused_pqp_iterations_reference(*args, num_iters=8,
+                                                  den_eps=1e-30)
+    torch.cuda.synchronize()
+    assert bool(want[:, 130].isnan().all())
+    assert bool((got.isnan() == want.isnan()).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
 
 K1_CASES = {
     "explicit_gap": (dataclasses.replace(
@@ -240,6 +315,73 @@ def test_k4_kernel_matches_plain(dev, case):
     y2, u2, it2, st2 = tiled_solve_kernel.fused_full_solve_tiled(*args, **kw)
     assert bool((it2 == it).all()) and bool((y2 == y).all())
 
+
+
+#: K4 at the edges of k4_plan: N not a multiple of the 32-row tile with M
+#: and B not multiples of 4 (entry-by-entry staging, 64-lane tiles), and a
+#: batch below 32 lanes
+K4_PLAN_EDGES = {
+    "n203_m50_b40": (203, 50, 40),
+    "n256_m64_b5": (256, 64, 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K4_PLAN_EDGES))
+def test_k4_plan_edges_match_plain(dev, case):
+    N, M, B = K4_PLAN_EDGES[case]
+    cfg = K4_CASES["complementarity_gap"][0]
+    plan = tiled_solve_kernel.k4_plan(N, M, B)
+    assert plan["tile_lanes"] == (64 if B == 40 else 32)
+    assert not plan["vector_staging"] or N % 4 == 0
+    primal, dual = _random_problem(dev, N, M, B)
+    args, kw = tiled_solve_kernel.tiled_inputs(primal, dual, None, cfg)
+    y, u, it, st = tiled_solve_kernel.fused_full_solve_tiled(*args, **kw)
+    y_p, u_p, it_p, st_p = \
+        tiled_solve_kernel.fused_full_solve_tiled_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert bool((st == st_p).all()) and bool((st_p == 1).any())
+    within = ((it - it_p).abs() <= _bar(it_p, cfg.check_every))[st_p == 1]
+    assert bool(within.all())
+    scale = max(1.0, float(u_p.abs().max()))
+    assert float((u - u_p).abs().max()) <= 5e-3 * scale
+    again = tiled_solve_kernel.fused_full_solve_tiled(*args, **kw)
+    assert all(bool((a == b).all()) for a, b in zip(again, (y, u, it, st)))
+
+
+def test_k4_takes_matrices_at_an_odd_offset(dev):
+    cfg = K4_CASES["complementarity_gap"][0]
+    primal, dual = _random_problem(dev, 200, 64, 72)
+    args, kw = tiled_solve_kernel.tiled_inputs(primal, dual, None, cfg)
+    assert tiled_solve_kernel.k4_plan(200, 64, 72)["vector_staging"]
+    want = tiled_solve_kernel.fused_full_solve_tiled(*args, **kw)
+    # Qd and theta (Qd_hat is built from them), and Gp, Qp and Qp_inv,
+    # which the tile stages in 16-byte chunks
+    odd = tuple(_at_odd_offset(t) for t in args[:5]) + tuple(args[5:])
+    got = tiled_solve_kernel.fused_full_solve_tiled(*odd, **kw)
+    torch.cuda.synchronize()
+    assert all(bool((g == w).all()) for g, w in zip(got, want))
+
+
+def test_k4_carries_a_nan_lane_like_plain(dev):
+    cfg = K4_CASES["complementarity_gap"][0]
+    primal, dual = _random_problem(dev, 200, 64, 72)
+    Y0 = torch.full((200, 72), cfg.y0, device=dev)
+    Y0[7, 40] = float("nan")
+    args, kw = tiled_solve_kernel.tiled_inputs(primal, dual, Y0, cfg)
+    y, u, it, st = tiled_solve_kernel.fused_full_solve_tiled(*args, **kw)
+    y_p, u_p, it_p, st_p = \
+        tiled_solve_kernel.fused_full_solve_tiled_reference(*args, **kw)
+    torch.cuda.synchronize()
+    nan_lanes = y_p.isnan().any(dim=0)
+    assert nan_lanes.tolist() == [b == 40 for b in range(72)]
+    assert bool((y.isnan().any(dim=0) == nan_lanes).all())
+    assert bool((u.isnan().any(dim=0) == u_p.isnan().any(dim=0)).all())
+    assert bool((st == st_p).all()) and bool((it == it_p)[40])
+    ok = ~nan_lanes
+    within = ((it - it_p).abs() <= _bar(it_p, cfg.check_every))[ok]
+    assert bool(within.all())
+    scale = max(1.0, float(u_p[:, ok].abs().max()))
+    assert float((u - u_p)[:, ok].abs().max()) <= 5e-3 * scale
 
 def test_past_the_resident_kernels_ride_the_streamed_kernel(dev):
     # N = 132: past the resident kernels, use_pallas rides K3's f32 mode and

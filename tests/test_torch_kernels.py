@@ -168,3 +168,65 @@ def test_solve_fused_rejects_split_free_dual():
     td = dataclasses.replace(td, Qdp_theta=None, Qdn_theta=None)
     with pytest.raises(ValueError, match="MATERIALIZED"):
         solve_kernel.solve_fused(tp, td, cfg=SMOKE)
+
+
+def test_k2_plain_carries_a_nan_lane_like_jax_kernel():
+    # a NaN entry of Y stays in its own lane: the card's K2 is held to the
+    # plain version's NaN lanes (tests/test_torch_cuda.py), the plain
+    # version here to the JAX kernel's
+    jp, jd, tp, td = _workload()
+    qdn, qdp, fdn, fdp, Y = _k2_inputs(jd, False)
+    Y[3, 5] = np.nan
+    N = qdn.shape[0]
+    want = np.asarray(j_k2(jnp.asarray(qdn), jnp.asarray(qdp),
+                           jnp.asarray(fdn), jnp.asarray(fdp),
+                           jnp.asarray(Y), num_iters=8, interpret=True,
+                           den_eps=1e-30))
+    got = kernels.fused_pqp_iterations(
+        *(torch.tensor(a) for a in (qdn, qdp, fdn, fdp, Y)),
+        num_iters=8, den_eps=1e-30).numpy()
+    assert np.isnan(want[:, 5]).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert N == 28 and not np.isnan(np.delete(got, 5, axis=1)).any()
+
+
+@pytest.mark.parametrize("n,B", [(1, 7), (28, 1 << 22), (30, 1000),
+                                 (64, 129), (120, 1), (128, 4096)])
+def test_k2_plan(n, B):
+    p = kernels.k2_plan(n, B)
+    rows = p["row_groups"] * p["rows_per_thread"]
+    assert n <= rows < n + p["rows_per_thread"]
+    lg = p["lane_groups"]
+    assert lg & (lg - 1) == 0 and lg <= kernels.K2_MAX_LANE_GROUPS
+    assert p["threads"] == p["row_groups"] * lg <= kernels.K2_MAX_THREADS
+    # the widest block: one more doubling of the lane groups would not fit
+    assert (2 * lg > kernels.K2_MAX_LANE_GROUPS
+            or 2 * p["threads"] > kernels.K2_MAX_THREADS)
+    assert p["lanes_per_block"] == p["lanes_per_thread"] * lg
+    assert (p["blocks"] - 1) * p["lanes_per_block"] < B \
+        <= p["blocks"] * p["lanes_per_block"]
+    assert p["smem_bytes"] <= kernels.SMEM_LIMIT_BYTES
+
+
+def test_k2_plan_main_path_and_limits():
+    # the main path's N = 28: 7 row groups x 32 lane groups over 128 lanes
+    p = kernels.k2_plan(28, 1 << 22)
+    assert (p["threads"], p["lanes_per_block"], p["blocks"]) == (224, 128,
+                                                                 32768)
+    assert kernels.k2_plan(128, 1)["smem_bytes"] == 4 * (2 * 128 * 128
+                                                         + 2 * 128 * 32)
+    for n, B in ((0, 4), (129, 4), (28, 0)):
+        with pytest.raises(ValueError):
+            kernels.k2_plan(n, B)
+
+
+def test_aligned16_copies_only_a_misaligned_view():
+    buf = torch.arange(13, dtype=torch.float32)
+    whole = buf[:12].view(3, 4)
+    assert whole.data_ptr() % 16 == 0
+    assert kernels._aligned16(whole) is whole
+    odd = buf[1:].view(3, 4)
+    got = kernels._aligned16(odd)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 == 4
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, odd)

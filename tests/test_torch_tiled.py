@@ -277,3 +277,59 @@ def test_k3_bf16_tile_plan():
         assert p["blocks"] == -(-n // p["tile_rows"])
     with pytest.raises(ValueError):
         plan(0, 4)
+
+
+def test_k4_plain_carries_a_nan_lane_like_jax():
+    # a NaN entry of Y0 stays in its own lane on both sides: the lane passes
+    # the in-kernel test at the first check (every comparison with NaN is
+    # false) and the rescue's verdict leaves it unconverged; the other
+    # lanes solve as without it.  The card's K4 is held to the plain
+    # version's NaN lanes (tests/test_torch_cuda.py)
+    jp, jd, tp, td = _random_problem(256, 96, 8, 3, 3.0)
+    cfg = SolverConfig(max_iters=200, check_every=8, y0=10.0,
+                       strict_weak_duality=False,
+                       gap_from_complementarity=True)
+    Y0 = np.full((256, 8), 10.0, np.float32)
+    Y0[7, 2] = np.nan
+    want = j_solve_fused_tiled(jp, jd, Y0=jnp.asarray(Y0), cfg=_jcfg(cfg),
+                               interpret=True)
+    got = tiled_solve_kernel.solve_fused_tiled(tp, td, Y0=torch.tensor(Y0),
+                                               cfg=cfg)
+    nan_lanes = np.isnan(np.asarray(want.Y)).any(axis=0)
+    assert nan_lanes.tolist() == [b == 2 for b in range(8)]
+    np.testing.assert_array_equal(np.isnan(got.Y.numpy()).any(axis=0),
+                                  nan_lanes)
+    np.testing.assert_array_equal(np.isnan(got.U.numpy()).any(axis=0),
+                                  np.isnan(np.asarray(want.U)).any(axis=0))
+    assert not bool(got.converged[2]) and int(got.iters[2]) == 1
+    _k4_parity(got, want, cfg.check_every, False)
+
+
+@pytest.mark.parametrize("n,m,B", [(4096, 1024, 128), (1024, 256, 128),
+                                   (200, 64, 72), (203, 50, 40),
+                                   (256, 64, 5), (384, 128, 300)])
+def test_k4_plan(n, m, B):
+    p = tiled_solve_kernel.k4_plan(n, m, B)
+    lanes = p["tile_lanes"]
+    assert p["tile_rows"] == 32 and lanes in (32, 64, 128)
+    # the narrowest lane tile that holds the batch: each row of Qd_hat is
+    # streamed once per update up to B = 128
+    assert lanes >= min(B, 128) and (lanes == 32 or lanes // 2 < B)
+    assert p["q_reads_per_update"] == -(-B // lanes)
+    assert p["q_reads_per_update"] == 1 or B > 128
+    assert p["blocks"] == -(-n // 32) * p["q_reads_per_update"]
+    assert p["check_tiles"] == p["blocks"] + -(-m // 32) * -(-B // lanes)
+    assert p["vector_staging"] == (n % 4 == 0 and m % 4 == 0 and B % 4 == 0)
+    assert p["smem_bytes"] <= 232448
+
+
+def test_k4_plan_streamed_workload():
+    # N=4096/M=1024/B=128: 128 tiles of 32 x 128 for 132 SMs, Q read once
+    # per update, 16-byte staging; the ring of three 64-deep slabs in 123 KB
+    p = tiled_solve_kernel.k4_plan(4096, 1024, 128)
+    assert (p["tile_lanes"], p["blocks"], p["q_reads_per_update"]) == (
+        128, 128, 1)
+    assert p["vector_staging"] and p["smem_bytes"] == 125952
+    for bad in ((0, 4, 4), (4, 0, 4), (4, 4, 0)):
+        with pytest.raises(ValueError):
+            tiled_solve_kernel.k4_plan(*bad)

@@ -46,18 +46,21 @@ BUILDS = [("resident_16", True, ["-DPQP_K5_SIZES=16"]),
           ("min_blocks_3", True, ["-DPQP_K5_MIN_BLOCKS=3"])]
 
 
-def build_variants(variants, entry_points, csrc=build.CSRC):
+def build_variants(variants, entry_points, csrc=build.CSRC, select=None):
     """Build each ``(name, source, flags)`` of ``variants`` with
     ``csrc/pqp_iterations.cu`` (it carries ``pqp_error_string``, which
     ``build.check`` reads) into its own library, all ``nvcc`` started
-    together: ``{name: (library, ptxas's register and spill lines)}``."""
+    together: ``{name: (library, ptxas's register and spill lines)}`` —
+    the first two such lines, or ``select(log)`` when given.  A source that
+    is ``csrc/pqp_iterations.cu`` itself is built alone."""
     out = os.path.join(ROOT, ".build", "probes")
     os.makedirs(out, exist_ok=True)
     jobs = {}
     for name, source, flags in variants:
         lib = os.path.join(out, f"{name}.so")
+        srcs = {str(source), str(csrc / "pqp_iterations.cu")}
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", *flags, "-o",
-               lib, str(source), str(csrc / "pqp_iterations.cu")]
+               lib, *sorted(srcs)]
         jobs[name] = (lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -72,9 +75,24 @@ def build_variants(variants, entry_points, csrc=build.CSRC):
             getattr(cdll, entry).restype = ctypes.c_int
         cdll.pqp_error_string.argtypes = [ctypes.c_int]
         cdll.pqp_error_string.restype = ctypes.c_char_p
-        libs[name] = (cdll, [ln.strip() for ln in log.splitlines()
-                             if re.search(r"registers|spill", ln)][:2])
+        libs[name] = (cdll, select(log) if select else
+                      [ln.strip() for ln in log.splitlines()
+                       if re.search(r"registers|spill", ln)][:2])
     return libs
+
+
+def ptxas_lines(log: str, pattern: str) -> list:
+    """ptxas's register, stack and spill lines for the functions whose
+    mangled name matches ``pattern``, each prefixed with that name."""
+    out, name = [], ""
+    for ln in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
+                      ln)
+        if m:
+            name = m.group(1)
+        elif re.search(r"registers|spill", ln) and re.search(pattern, name):
+            out.append(f"{name}: {ln.strip()}")
+    return out
 
 
 def smi_line() -> str:
