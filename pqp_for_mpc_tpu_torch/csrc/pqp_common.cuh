@@ -1,14 +1,10 @@
-// Helpers shared by the kernels (pqp_iterations.cu, full_solve.cu and,
-// through tile_gemm.cuh, fma_tile.cuh and distinct_common.cuh, the
+// Helpers shared by the kernels (pqp_iterations.cu, lane_tile_solve.cuh
+// and, through tile_gemm.cuh, fma_tile.cuh and distinct_common.cuh, the
 // streamed and the distinct-geometry kernels).
 //
 // Layout conventions, as the Python wrappers pass them:
-//  * matrices are row-major float32; in shared memory each row is padded to
-//    a multiple of 4 floats with zeros, so a row starts 16-byte aligned and
-//    is read four entries per load (a broadcast: every thread of a warp
-//    reads the same address);
-//  * per-lane vectors live in fixed-size register arrays of NMAX entries,
-//    zero beyond the runtime length, so a padded row entry meets a zero;
+//  * matrices are row-major float32 in device memory; a kernel stages them
+//    in shared memory in the layout its products read;
 //  * panels are batch-last, element (i, b) at p[i * B + b]: neighbouring
 //    threads (lanes) read neighbouring addresses.  A panel shared by every
 //    lane is passed as a column with lane flag 0.
@@ -18,8 +14,6 @@
 #include <cuda_runtime.h>
 
 namespace pqp {
-
-constexpr int kLanesPerBlock = 128;
 
 // Per-lane exit codes of the whole-solve kernels (the TPU kernels' codes).
 enum LaneState : int {
@@ -35,57 +29,6 @@ __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 // the TPU's bf16 matvec sees.
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// One panel as seen by one lane: element i is p[i * row + col].
-struct LanePanel {
-  const float* p;
-  long long row;
-  long long col;
-  __device__ __forceinline__ float operator[](int i) const {
-    return p[i * row + col];
-  }
-};
-
-__device__ __forceinline__ LanePanel lane_panel(const float* p, int lane,
-                                                int B, int b) {
-  return LanePanel{p, lane ? (long long)B : 1LL, lane ? (long long)b : 0LL};
-}
-
-// Copy a (rows, cols) row-major matrix into shared memory with row stride
-// ld >= cols, zero-filling the padding columns.  transpose=true stores the
-// transpose (cols rows of stride ld).
-__device__ __forceinline__ void stage_matrix(float* dst, const float* src,
-                                             int rows, int cols, int ld,
-                                             bool transpose) {
-  const int out_rows = transpose ? cols : rows;
-  const int out_cols = transpose ? rows : cols;
-  for (int k = threadIdx.x; k < out_rows * ld; k += blockDim.x) {
-    const int r = k / ld, c = k % ld;
-    float v = 0.f;
-    if (c < out_cols) v = transpose ? src[c * cols + r] : src[r * cols + c];
-    dst[k] = v;
-  }
-}
-
-// dot(row[0:n], v[0:n]) with row 16-byte aligned and zero-padded to a
-// multiple of 4; summed in index order with fused multiply-adds.
-template <int NMAX>
-__device__ __forceinline__ float row_dot(const float* __restrict__ row,
-                                         const float (&v)[NMAX], int n) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float acc = 0.f;
-#pragma unroll
-  for (int q = 0; q < NMAX / 4; ++q) {
-    if (4 * q < n) {
-      const float4 a = r4[q];
-      acc = fmaf(a.x, v[4 * q + 0], acc);
-      acc = fmaf(a.y, v[4 * q + 1], acc);
-      acc = fmaf(a.z, v[4 * q + 2], acc);
-      acc = fmaf(a.w, v[4 * q + 3], acc);
-    }
-  }
-  return acc;
 }
 
 // The guarded denominator of the update.  Written as a comparison, not
@@ -107,31 +50,77 @@ __device__ __forceinline__ float relu_max(float v) {
   return r;
 }
 
-// One multiplicative update of a lane's iterate,
+// The register tile of the resident kernels (K2, pqp_iterations.cu, and
+// the lane-tile engine of K1 and K8, lane_tile_solve.cuh).  A block owns a
+// tile of lanes and every row of them; a thread owns R rows x L lanes of
+// it.  Operands live in shared memory: a matrix depth-major (q[k * ld + r],
+// rows padded with zeros to a multiple of R, so R rows of one depth are one
+// 16-byte load, the same for every thread of a row group), an iterate tile
+// row-major with stride lanes (y[k * lanes + c], L lanes one 16-byte load).
+namespace tile4 {
+
+constexpr int R = 4;  // rows of a thread
+constexpr int L = 4;  // lanes of a thread
+
+// 4 consecutive floats at a 16-byte aligned address in one access.
+__device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// One multiplicative update of the thread's entries,
 //     y <- y * (Qdn y + Fdn) / guard(Qdp y + Fdp),
-// with both splits in shared memory (row stride ld): K1's update.  K2 sums
-// each entry in the same order, 4 rows x 4 lanes per thread
-// (pqp_iterations.cu).
-template <int NMAX>
-__device__ __forceinline__ void update_lane(const float* qdn, const float* qdp,
-                                            int ld, const LanePanel& fdn,
-                                            const LanePanel& fdp,
-                                            float (&y)[NMAX], int n,
-                                            float den_eps) {
-  float yn[NMAX];
-#pragma unroll(NMAX <= 32 ? NMAX : 1)
-  for (int i = 0; i < NMAX; ++i) {
-    float v = 0.f;
-    if (i < n) {
-      const float num = row_dot<NMAX>(qdn + i * ld, y, n) + fdn[i];
-      const float den =
-          guard_den(row_dot<NMAX>(qdp + i * ld, y, n) + fdp[i], den_eps);
-      v = (num / den) * y[i];
-    }
-    yn[i] = v;
+// from the tile yc into the tile yn (rows r0.. < n, lanes c0..c0+L): qn,
+// qp the two splits depth-major with row stride np, fn / fq the thread's
+// entries of Fdn / Fdp.  Each entry's sum runs in ascending k from 0 with
+// fused multiply-adds, then adds the forcing term: the order of the
+// previous one-lane-per-thread kernels, so their bits.
+__device__ __forceinline__ void update(const float* __restrict__ qn,
+                                       const float* __restrict__ qp, int np,
+                                       const float* yc, float* yn, int lanes,
+                                       int n, int r0, int c0,
+                                       const float (&fn)[R][L],
+                                       const float (&fq)[R][L],
+                                       float den_eps) {
+  float num[R][L], den[R][L];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < L; ++j) num[i][j] = den[i][j] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < n; ++k) {
+    float qa[R], qb[R], yv[L];
+    load(qn + k * np + r0, qa);
+    load(qp + k * np + r0, qb);
+    load(yc + k * lanes + c0, yv);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        num[i][j] = fmaf(qa[i], yv[j], num[i][j]);
+        den[i][j] = fmaf(qb[i], yv[j], den[i][j]);
+      }
   }
 #pragma unroll
-  for (int i = 0; i < NMAX; ++i) y[i] = yn[i];
+  for (int i = 0; i < R; ++i) {
+    const int r = r0 + i;
+    if (r >= n) continue;
+    float y[L];
+    load(yc + r * lanes + c0, y);
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const float nu = num[i][j] + fn[i][j];
+      const float de = guard_den(den[i][j] + fq[i][j], den_eps);
+      y[j] = (nu / de) * y[j];
+    }
+    store(yn + r * lanes + c0, y);
+  }
 }
+
+}  // namespace tile4
 
 }  // namespace pqp

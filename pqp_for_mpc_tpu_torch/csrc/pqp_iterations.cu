@@ -21,9 +21,9 @@
 // groups x LG lane groups, LG the largest power of two with at most 256
 // threads, at most 32 (ops/kernels.py: k2_plan): at N = 28, 7 x 32
 // threads over 128 lanes.  Each entry's sum runs in ascending k from 0
-// with fused multiply-adds, then adds Fd, as K1's update_lane does (the
-// previous design's bits), so a relaunch repeats every bit.  N above 128
-// is refused.  R = L = 4 is the fastest thread tile measured on an H100
+// with fused multiply-adds, then adds Fd (tile4::update in pqp_common.cuh,
+// the lane-tile engine's update too), so a relaunch repeats every bit.  N
+// above 128 is refused.  R = L = 4 is the fastest thread tile measured on an H100
 // (PERF.md): 4 x 2, 2 x 4 and smaller tiles, and this tile with its
 // registers capped for 3 or 4 blocks per SM, ran slower.
 //
@@ -50,20 +50,12 @@
 namespace pqp {
 namespace k2 {
 
-constexpr int R = 4;  // rows of a thread
-constexpr int L = 4;  // lanes of a thread
+using tile4::R;
+using tile4::L;
+using tile4::load;
+using tile4::store;
 constexpr int kMaxThreads = 256;
 constexpr int kMaxLaneGroups = 32;
-
-// 4 consecutive floats at a 16-byte aligned address in one access.
-__device__ __forceinline__ void load(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-__device__ __forceinline__ void store(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
 
 // This thread's L lanes of row r of a batch-last (n x B) panel: one
 // vector load when the lanes are whole and aligned (B % L == 0), else one
@@ -144,41 +136,8 @@ pqp_iterations_kernel(const float* __restrict__ qdn,
 
   int cur = 0;
   for (int it = 0; it < num_iters; ++it) {
-    const float* yc = ys + cur * n * lb;
-    float* yn = ys + (cur ^ 1) * n * lb;
-    float num[R][L], den[R][L];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < L; ++j) num[i][j] = den[i][j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < n; ++k) {
-      float qa[R], qb[R], yv[L];
-      load(s_qn + k * np + r0, qa);
-      load(s_qp + k * np + r0, qb);
-      load(yc + k * lb + c0, yv);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < L; ++j) {
-          num[i][j] = fmaf(qa[i], yv[j], num[i][j]);
-          den[i][j] = fmaf(qb[i], yv[j], den[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = r0 + i;
-      if (r >= n) continue;
-      float y[L];
-      load(yc + r * lb + c0, y);
-#pragma unroll
-      for (int j = 0; j < L; ++j) {
-        const float nu = num[i][j] + fn[i][j];
-        const float de = guard_den(den[i][j] + fp[i][j], den_eps);
-        y[j] = (nu / de) * y[j];
-      }
-      store(yn + r * lb + c0, y);
-    }
+    tile4::update(s_qn, s_qp, np, ys + cur * n * lb, ys + (cur ^ 1) * n * lb,
+                  lb, n, r0, c0, fn, fp, den_eps);
     __syncthreads();
     cur ^= 1;
   }

@@ -47,17 +47,18 @@ SIGNATURES = {
     # qdn, qdp, fdn, fdp, fd_lane, y, y_out, n, B, num_iters, den_eps,
     # stream
     "pqp_iterations_f32": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P],
-    # qdn, qdp, qd, gp, qp, qpi,
-    # fp, fp_lane, fd, fd_lane, fdp, fdp_lane, fdn, fdn_lane,
+    # geo, fp, fp_lane, fd, fd_lane, fdp, fdp_lane, fdn, fdn_lane,
     # kps, kps_lane, mp, mp_lane, md, md_lane, y0, y0_lane,
-    # y_out, u_out, iters_out, state_out,
+    # y_out, u_out, iters_out, state_out, queue,
     # n, m, B, max_iters, check_every, accel_every,
     # eaj, erj, strict, den_eps, gap_comp, stream
-    "full_solve_f32": [_P] * 6 + [_P, _I] * 8 + [_P] * 4 + [_I] * 6
+    "full_solve_f32": [_P] + [_P, _I] * 8 + [_P] * 5 + [_I] * 6
     + [_F, _F, _I, _F, _I, _P],
     # the arguments of full_solve_f32
-    "full_solve_packed_f32": [_P] * 6 + [_P, _I] * 8 + [_P] * 4 + [_I] * 6
+    "full_solve_packed_f32": [_P] + [_P, _I] * 8 + [_P] * 5 + [_I] * 6
     + [_F, _F, _I, _F, _I, _P],
+    # n, m, B, out (7 ints)
+    "full_solve_plan": [_I] * 3 + [_P],
     # q, q_bf16, theta, fdn, fdp, fd_lane, y, y_out, y_tmp, yb0, yb1, n,
     # B, num_iters, den_eps, tile_rows, tile_lanes, stream
     "pqp_iterations_tiled": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,

@@ -13,9 +13,11 @@ lane state and iteration stamps live per segment.  The function is K1's
   segment reductions through ``E`` — looping until no segment is active
   or ``h > max_iters``.
 * :func:`fused_full_solve_packed` takes K1's arguments.  CPU tensors go to
-  the plain version; CUDA tensors launch ``csrc/full_solve_packed.cu`` (one
-  warp per packed column, the geometry un-kronned in shared memory; see the
-  note at the top of the source), and a failed build or launch raises.
+  the plain version; CUDA tensors launch ``csrc/full_solve_packed.cu``,
+  which runs K1's lane-tile engine (``csrc/lane_tile_solve.cuh``: on SIMT
+  the lane tile is the packing, and the kron's zero blocks would be waste;
+  see the note at the top of the source) and so gives K1's bits on every
+  lane, and a failed build or launch raises.
   ``fused_full_solve_packed.launches`` counts the launches.
 * :func:`solve_fused_packed` wraps it into a
   :class:`~pqp_for_mpc_tpu_torch.solver.SolveResult` with the rescue of
@@ -25,7 +27,8 @@ lane state and iteration stamps live per segment.  The function is K1's
 Lane-state codes are int32, as K1's; the padding code 3 never leaves the
 wrapper.  The TPU kernel's VMEM accounting (``packed_batch_block``) and its
 ``block_b``/``interpret`` arguments have no counterpart: :func:`fits_packed`
-is the shared-memory fit test.
+is the fit test (the packing rule and K1's, whose plan is
+:func:`~pqp_for_mpc_tpu_torch.ops.solve_kernel.k1_plan`).
 """
 
 from __future__ import annotations
@@ -35,22 +38,19 @@ from typing import Optional
 import torch
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
-from pqp_for_mpc_tpu_torch.ops import build
-from pqp_for_mpc_tpu_torch.ops.kernels import (SMEM_LIMIT_BYTES, _matrix,
-                                               _on_cuda, _panel)
+from pqp_for_mpc_tpu_torch.ops.kernels import (N_MAX, SMEM_LIMIT_BYTES,
+                                               _on_cuda)
 from pqp_for_mpc_tpu_torch.ops.solve_kernel import (LANE_CERTIFIED,
                                                     LANE_MAX_ITERS,
                                                     LANE_PADDING,
                                                     LANE_STALLED,
+                                                    fits_resident,
                                                     fused_inputs,
-                                                    fused_result)
+                                                    fused_result,
+                                                    launch_engine)
 
 #: the TPU's (8, 128) tile: sublane quantum and contraction depth
 _SUBLANE, _LANE = 8, 128
-
-#: packed columns per block of the CUDA kernel, and the per-warp segment
-#: sums it stages (csrc/full_solve_packed.cu: kPackedWarps, kRedSlots)
-_WARPS, _RED_SLOTS = 8, 5
 
 
 def _round_up(x: int, m: int) -> int:
@@ -65,22 +65,11 @@ def pack_factor(n: int) -> int:
     return max(1, _LANE // n_pad)
 
 
-def smem_bytes(n: int, m: int) -> int:
-    """Shared memory of one block of the kernel: the seven un-kronned
-    matrices with rows padded to an odd stride, and per warp the staging
-    slices of its G instances and the segment sums."""
-    ldn, ldm = n | 1, m | 1
-    G = pack_factor(n)
-    mats = 3 * n * ldn + n * ldm + m * ldn + 2 * m * ldm
-    per_warp = 2 * G * ldn + 2 * G * ldm + _RED_SLOTS * 32
-    return (mats + _WARPS * per_warp) * 4
-
-
 def fits_packed(n: int, m: int) -> bool:
     """Does the packed kernel take an ``N=n``, ``M=m`` problem: ``n``
-    packs (G >= 2) and one block's shared memory holds the geometry?"""
-    return (n >= 1 and m >= 1 and pack_factor(n) > 1
-            and smem_bytes(n, m) <= SMEM_LIMIT_BYTES)
+    packs (G >= 2) and K1's engine takes the shape
+    (:func:`~pqp_for_mpc_tpu_torch.ops.solve_kernel.fits_resident`)?"""
+    return pack_factor(n) > 1 and fits_resident(n, m)
 
 
 def _pack_panel(X, n_pad, G, Bc, row_fill=0.0, col_fill=0.0):
@@ -291,42 +280,14 @@ def fused_full_solve_packed(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
     M = Gp.shape[1]
     if not fits_packed(N, M):
         raise ValueError(
-            f"fused_full_solve_packed: N={N}, M={M} need "
-            f"{smem_bytes(N, M)} bytes of shared memory (limit "
-            f"{SMEM_LIMIT_BYTES}); use solve_fused or solve_batched")
+            f"fused_full_solve_packed: N={N}, M={M} exceed the whole-solve "
+            f"engine's shared memory (max(N, M) <= {N_MAX} and "
+            f"{SMEM_LIMIT_BYTES} bytes); use solve_batched")
     if check_every < 1 or accel_every < 0:
         raise ValueError("check_every must be >= 1 and accel_every >= 0")
-    dev = Y0.device
-    mats = [_matrix(Qdn_theta, (N, N), "Qdn_theta", dev),
-            _matrix(Qdp_theta, (N, N), "Qdp_theta", dev),
-            _matrix(Qd, (N, N), "Qd", dev),
-            _matrix(Gp, (N, M), "Gp", dev),
-            _matrix(Qp, (M, M), "Qp", dev),
-            _matrix(Qp_inv, (M, M), "Qp_inv", dev)]
-    panels = [_panel(Fp, M, B, "Fp", dev), _panel(Fd, N, B, "Fd", dev),
-              _panel(Fdp, N, B, "Fdp", dev), _panel(Fdn, N, B, "Fdn", dev),
-              _panel(Kp_slack, N, B, "Kp_slack", dev),
-              _panel(Mp.reshape(1, -1), 1, B, "Mp", dev),
-              _panel(Md.reshape(1, -1), 1, B, "Md", dev),
-              _panel(Y0, N, B, "Y0", dev)]
-    y = torch.empty((N, B), dtype=torch.float32, device=dev)
-    u = torch.empty((M, B), dtype=torch.float32, device=dev)
-    iters = torch.empty(B, dtype=torch.int32, device=dev)
-    state = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return y, u, iters, state
-    lib = build.load_library()
-    args = [t.data_ptr() for t in mats]
-    for t, lane in panels:
-        args += [t.data_ptr(), lane]
-    code = lib.full_solve_packed_f32(
-        *args, y.data_ptr(), u.data_ptr(), iters.data_ptr(),
-        state.data_ptr(), N, M, B, int(max_iters), int(check_every),
-        int(accel_every), float(eaj), float(erj), int(bool(strict)),
-        float(den_eps), int(bool(gap_comp)), build.stream_handle(dev))
-    build.check(code, "fused_full_solve_packed")
-    fused_full_solve_packed.launches += 1
-    return y, u, iters, state
+    return launch_engine("full_solve_packed_f32", fused_full_solve_packed,
+                         Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv, Fp, Fd,
+                         Fdp, Fdn, Kp_slack, Mp, Md, Y0, **kw)
 
 
 fused_full_solve_packed.launches = 0

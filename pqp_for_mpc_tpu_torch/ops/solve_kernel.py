@@ -3,9 +3,15 @@
 The counterpart of ``pqp_for_mpc_tpu/ops/solve_kernel.py``: multiplicative
 updates, the periodic four-part termination check with the recovered U,
 optional safeguarded acceleration, the stall freeze and the early exit, all
-inside one launch.  The kernel is ``csrc/full_solve.cu`` (one CUDA thread
-per lane, geometry staged in shared memory; see the note at the top of the
-source); :func:`fused_full_solve_reference` is its plain PyTorch version, a
+inside one launch.  The kernel is the lane-tile engine
+(``csrc/lane_tile_solve.cuh``, entered through ``csrc/full_solve.cu``): a
+block holds a tile of lane slots with the geometry in shared memory, every
+product runs on a register tile of 4 rows x 4 lanes per thread, and a slot
+takes the next lane from a global queue as soon as its lane retires (see
+the note at the top of the source; :func:`k1_plan` mirrors its launch
+plan, :func:`card_plan` asks the card).  K8
+(:mod:`pqp_for_mpc_tpu_torch.ops.packed_kernel`) launches the same engine.
+:func:`fused_full_solve_reference` is its plain PyTorch version, a
 vectorised rendition of the TPU kernel's body.
 
 Outputs of :func:`fused_full_solve`: ``Y (N, B)``, ``U = -Qp^-1(Fp+Gp'Y)
@@ -39,16 +45,106 @@ LANE_MAX_ITERS, LANE_CERTIFIED, LANE_STALLED, LANE_PADDING = 0, 1, 2, 3
 
 
 def smem_bytes(n: int, m: int) -> int:
-    """Shared memory of one block: Qd^-+th, Qd^++th, Qd, Gp, Gp', Qp,
-    Qp^-1 with rows padded to 4 floats."""
+    """Bytes of the geometry the engine stages: Qd^-+th, Qd^++th, Qd, Gp,
+    Gp', Qp^-1 and Qp, each with its rows padded to 4 floats
+    (:func:`engine_geometry`)."""
     ldn, ldm = _round4(n), _round4(m)
     return (3 * n * ldn + n * ldm + m * ldn + 2 * m * ldm) * 4
 
 
 def fits_resident(n: int, m: int) -> bool:
-    """Does the whole-solve kernel take an ``N=n``, ``M=m`` problem?"""
+    """Does the whole-solve kernel take an ``N=n``, ``M=m`` problem: both
+    at most 128, and the geometry within one block's shared memory?"""
     return (1 <= n <= N_MAX and 1 <= m <= N_MAX
             and smem_bytes(n, m) <= SMEM_LIMIT_BYTES)
+
+
+#: the engine's thread tile (rows x lanes), its most threads and lane
+#: groups per block, its shared words per slot beyond the columns and per
+#: block, and its matrices in layout order
+#: (``csrc/lane_tile_solve.cuh``: ``tile4::R``, ``tile4::L``,
+#: ``kMaxThreads``, ``kMaxLaneGroups``, ``kSlotWords``, ``kCtlWords``)
+K1_ROWS, K1_LANES, K1_MAX_THREADS, K1_MAX_LANE_GROUPS = 4, 4, 256, 32
+K1_SLOT_WORDS, K1_CTL_WORDS = 12, 4
+K1_MATRICES = ("Qdn_theta", "Qdp_theta", "Qd", "Gp", "Gp'", "Qp_inv", "Qp")
+
+
+def k1_plan(n: int, m: int, B: int) -> dict:
+    """The engine's launch plan for ``N=n``, ``M=m``, ``B`` lanes, as the
+    kernel computes it: rows padded to ``K1_ROWS``; K2's widest block (the
+    most power-of-two lane groups of ``K1_LANES`` lanes, at most
+    ``K1_MAX_LANE_GROUPS``, within ``K1_MAX_THREADS`` threads), halved
+    while the block's shared memory passes ``SMEM_LIMIT_BYTES``; at one
+    lane group, the trailing matrices of :data:`K1_MATRICES` stay in device
+    memory until it fits (``staged`` of them in shared memory, at least the
+    two splits).  Shared memory holds the staged matrices, per slot two
+    iterate columns, a work column, a scratch of max(n, 3m) rows, Fd,
+    Kp_slack and Fp, and the slot's scalars, and the block's queue words.
+    ``blocks`` is the most blocks the launch needs, ceil(B / lanes); the
+    card caps it at the blocks it holds at once (:func:`card_plan`)."""
+    if not fits_resident(n, m) or B < 1:
+        raise ValueError(f"k1_plan needs fits_resident(n, m) and B >= 1, "
+                         f"got n={n}, m={m}, B={B}")
+    ldn, ldm = _round4(n), _round4(m)
+    row_groups = ldn // K1_ROWS
+    ends = [0]
+    for size in (n * ldn, n * ldn, n * ldn, n * ldm, m * ldn, m * ldm,
+                 m * ldm):
+        ends.append(ends[-1] + size)
+    lane_words = 5 * n + max(n, 3 * m) + m + K1_SLOT_WORDS
+    block = lambda lanes, staged: 4 * (ends[staged] + lanes * lane_words
+                                       + K1_CTL_WORDS)
+    lg = 1
+    while (2 * lg <= K1_MAX_LANE_GROUPS
+           and 2 * lg * row_groups <= K1_MAX_THREADS):
+        lg *= 2
+    full = len(K1_MATRICES)
+    while lg > 1 and block(K1_LANES * lg, full) > SMEM_LIMIT_BYTES:
+        lg //= 2
+    staged = full
+    while staged > 2 and block(K1_LANES * lg, staged) > SMEM_LIMIT_BYTES:
+        staged -= 1
+    lanes = K1_LANES * lg
+    return dict(rows_per_thread=K1_ROWS, lanes_per_thread=K1_LANES,
+                row_groups=row_groups, lane_groups=lg,
+                threads=row_groups * lg, lanes_per_block=lanes,
+                staged=staged, geometry_floats=ends[-1],
+                smem_bytes=block(lanes, staged), blocks=-(-B // lanes))
+
+
+def card_plan(n: int, m: int, B: int) -> dict:
+    """The engine's plan as this card launches it: lanes and threads per
+    block, staged matrices, shared bytes per block, blocks per SM (the
+    occupancy the card reports), SMs and the grid.  Needs the card."""
+    import ctypes
+    out = (ctypes.c_int * 7)()
+    build.check(build.load_library().full_solve_plan(n, m, B, out),
+                "full_solve_plan")
+    return dict(zip(("lanes_per_block", "threads", "staged", "smem_bytes",
+                     "blocks_per_sm", "sms", "grid"), out))
+
+
+def _depth_major(A: torch.Tensor, rows_pad: int) -> torch.Tensor:
+    """``out[d, r] = A[r, d]`` with the rows padded with zeros to
+    ``rows_pad``, flat."""
+    out = A.new_zeros((A.shape[1], rows_pad))
+    out[:, :A.shape[0]] = A.T
+    return out.reshape(-1)
+
+
+def engine_geometry(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv):
+    """The engine's geometry layout, one float32 buffer: the matrices of
+    :data:`K1_MATRICES` in that order, each depth-major as its product
+    reads it (rows padded to 4 floats with zeros): the splits and Qd
+    (products with Y), Gp for Gp'Y, Gp' for Gp U, Qp^-1 and Qp (products
+    with U).  A block stages its first ``k1_plan(...)["staged"]`` matrices
+    in shared memory."""
+    n, m = Gp.shape
+    ldn, ldm = _round4(n), _round4(m)
+    return torch.cat([_depth_major(Qdn_theta, ldn),
+                      _depth_major(Qdp_theta, ldn), _depth_major(Qd, ldn),
+                      _depth_major(Gp.T, ldm), _depth_major(Gp, ldn),
+                      _depth_major(Qp_inv, ldm), _depth_major(Qp, ldm)])
 
 
 def fused_full_solve_reference(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
@@ -186,13 +282,31 @@ def fused_full_solve(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
             f"{SMEM_LIMIT_BYTES} bytes); use solve_batched")
     if check_every < 1 or accel_every < 0:
         raise ValueError("check_every must be >= 1 and accel_every >= 0")
+    return launch_engine("full_solve_f32", fused_full_solve, Qdn_theta,
+                         Qdp_theta, Qd, Gp, Qp, Qp_inv, Fp, Fd, Fdp, Fdn,
+                         Kp_slack, Mp, Md, Y0, **kw)
+
+
+def launch_engine(entry: str, wrapper, Qdn_theta, Qdp_theta, Qd, Gp, Qp,
+                  Qp_inv, Fp, Fd, Fdp, Fdn, Kp_slack, Mp, Md, Y0, *,
+                  max_iters: int, check_every: int, accel_every: int,
+                  eaj: float, erj: float, strict: bool, den_eps: float,
+                  precision: str, gap_comp: bool):
+    """Launch the lane-tile engine through the C entry ``entry`` (K1's or
+    K8's) on CUDA tensors whose shapes the caller checked: the geometry
+    laid out by :func:`engine_geometry`, the panels per lane or shared, a
+    zeroed int32 lane counter.  Adds one to ``wrapper.launches`` per
+    launch and returns ``(Y, U, iters, lane_state)``; a refused launch
+    raises naming ``wrapper``."""
+    N, B = Y0.shape
+    M = Gp.shape[1]
     dev = Y0.device
-    mats = [_matrix(Qdn_theta, (N, N), "Qdn_theta", dev),
-            _matrix(Qdp_theta, (N, N), "Qdp_theta", dev),
-            _matrix(Qd, (N, N), "Qd", dev),
-            _matrix(Gp, (N, M), "Gp", dev),
-            _matrix(Qp, (M, M), "Qp", dev),
-            _matrix(Qp_inv, (M, M), "Qp_inv", dev)]
+    geo = engine_geometry(_matrix(Qdn_theta, (N, N), "Qdn_theta", dev),
+                          _matrix(Qdp_theta, (N, N), "Qdp_theta", dev),
+                          _matrix(Qd, (N, N), "Qd", dev),
+                          _matrix(Gp, (N, M), "Gp", dev),
+                          _matrix(Qp, (M, M), "Qp", dev),
+                          _matrix(Qp_inv, (M, M), "Qp_inv", dev))
     panels = [_panel(Fp, M, B, "Fp", dev), _panel(Fd, N, B, "Fd", dev),
               _panel(Fdp, N, B, "Fdp", dev), _panel(Fdn, N, B, "Fdn", dev),
               _panel(Kp_slack, N, B, "Kp_slack", dev),
@@ -205,17 +319,18 @@ def fused_full_solve(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
     state = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return y, u, iters, state
-    lib = build.load_library()
-    args = [t.data_ptr() for t in mats]
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = [geo.data_ptr()]
     for t, lane in panels:
         args += [t.data_ptr(), lane]
-    code = lib.full_solve_f32(
+    code = getattr(build.load_library(), entry)(
         *args, y.data_ptr(), u.data_ptr(), iters.data_ptr(),
-        state.data_ptr(), N, M, B, int(max_iters), int(check_every),
-        int(accel_every), float(eaj), float(erj), int(bool(strict)),
-        float(den_eps), int(bool(gap_comp)), build.stream_handle(dev))
-    build.check(code, "fused_full_solve")
-    fused_full_solve.launches += 1
+        state.data_ptr(), queue.data_ptr(), N, M, B, int(max_iters),
+        int(check_every), int(accel_every), float(eaj), float(erj),
+        int(bool(strict)), float(den_eps), int(bool(gap_comp)),
+        build.stream_handle(dev))
+    build.check(code, wrapper.__name__)
+    wrapper.launches += 1
     return y, u, iters, state
 
 

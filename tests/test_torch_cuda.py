@@ -25,7 +25,12 @@ K7 like K3.  Every kernel whose reductions run in a fixed order repeats
 every bit on a second launch; the tests of K2 and K4–K8 check it.  K2 and
 K4 also carry a NaN lane of Y to NaN where the plain version does, and no
 further, and take operands that are contiguous views at a storage offset
-that is not 16-byte aligned, with the bits of an aligned launch.
+that is not 16-byte aligned, with the bits of an aligned launch.  K1 is
+also held on a batch whose lanes retire after 1 to 25 checks (its slots
+are refilled from the lane queue), at B = 1, 5, 129 and 4,099, with a NaN
+lane that leaves every other lane's bits as they were, with panels at an
+odd offset, and with its launch plan against the card's; K8, which
+launches K1's engine, gives K1's bits.
 """
 
 import dataclasses
@@ -202,6 +207,97 @@ def test_k1_kernel_matches_plain(dev, case):
     assert float(within.mean()) >= (0.99 if cfg.accel_every else 1.0)
     scale = max(1.0, float(u_p.abs().max()))
     assert float((u - u_p).abs().max()) <= 5e-3 * scale
+    again = solve_kernel.fused_full_solve(*args, **kw)
+    assert _bits_equal((y, u, it, st), again)
+
+
+def _bits_equal(a, b):
+    """Every output of two whole-solve launches equal bit for bit (NaN
+    included)."""
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def _k1_against_plain(args, kw):
+    """K1 on ``args``: states equal to its plain version's, iterations
+    in the bar, U within 5e-3 * max(1, |U|max), and a relaunch repeating
+    every bit.  Returns the kernel's outputs."""
+    out = solve_kernel.fused_full_solve(*args, **kw)
+    y_p, u_p, it_p, st_p = solve_kernel.fused_full_solve_reference(*args,
+                                                                   **kw)
+    _, u, it, st = out
+    assert bool((st == st_p).all())
+    assert bool(((it - it_p).abs() <= _bar(it_p, kw["check_every"])).all())
+    nan = u_p.isnan()
+    assert bool((u.isnan() == nan).all())
+    scale = max(1.0, float(u_p[~nan].abs().max()))
+    assert float((u - u_p)[~nan].abs().max()) <= 5e-3 * scale
+    assert _bits_equal(out, solve_kernel.fused_full_solve(*args, **kw))
+    return out
+
+
+def test_k1_refills_lanes_of_every_length(dev):
+    # half the lanes warm-started at their solution (certified at the
+    # first check), half cold, and max_iters short enough that some cold
+    # lanes end active: slots retire after 1 to 25 checks and are refilled
+    primal, dual = _workload(dev, 7, 3000)
+    args, kw = solve_kernel.fused_inputs(primal, dual, None, SMOKE)
+    solved, _, _, cold_st = solve_kernel.fused_full_solve(*args, **kw)
+    Y0 = torch.full_like(solved, SMOKE.y0)
+    Y0[:, ::2] = solved[:, ::2]
+    cfg = dataclasses.replace(SMOKE, max_iters=200)
+    args, kw = solve_kernel.fused_inputs(primal, dual, Y0, cfg)
+    _, _, it, st = _k1_against_plain(args, kw)
+    warm_cert = cold_st[::2] == 1
+    assert float(warm_cert.float().mean()) >= 0.99
+    assert bool(((st[::2] == 1) & (it[::2] == 1))[warm_cert].all())
+    assert 0 < int((st == 0).sum()) < 1500
+
+
+@pytest.mark.parametrize("B", [1, 5, 129, 4099])
+def test_k1_batch_edges(dev, B):
+    # fewer lanes than one block's slots, a ragged last tile, and a
+    # batch of many tiles
+    primal, dual = _workload(dev, 7, B)
+    args, kw = solve_kernel.fused_inputs(primal, dual, None, SMOKE)
+    _k1_against_plain(args, kw)
+
+
+def test_k1_keeps_a_nan_lane_to_itself(dev):
+    primal, dual = _workload(dev, 7, 300)
+    args, kw = solve_kernel.fused_inputs(primal, dual, None, SMOKE)
+    clean = solve_kernel.fused_full_solve(*args, **kw)
+    Y0 = torch.full((dual.n_con, 300), SMOKE.y0, device=dev)
+    Y0[3, 130] = float("nan")
+    args, kw = solve_kernel.fused_inputs(primal, dual, Y0, SMOKE)
+    out = _k1_against_plain(args, kw)
+    others = torch.arange(300, device=dev) != 130
+    assert _bits_equal([t[..., others] for t in out],
+                       [t[..., others] for t in clean])
+    assert bool(out[0][:, 130].isnan().any())
+
+
+def test_k1_takes_panels_at_an_odd_offset(dev):
+    primal, dual = _workload(dev, 7, 1000, per_lane_kp=True)
+    args, kw = solve_kernel.fused_inputs(primal, dual, None, SMOKE)
+    want = solve_kernel.fused_full_solve(*args, **kw)
+    odd = [_at_odd_offset(t.contiguous()) if t.dim() == 2 and
+           t.shape[-1] == 1000 else t for t in args]
+    assert sum(t.data_ptr() % 16 == 4 for t in odd) >= 2
+    assert _bits_equal(solve_kernel.fused_full_solve(*odd, **kw), want)
+
+
+@pytest.mark.parametrize("n,m", [(28, 7), (64, 16), (120, 30), (128, 28),
+                                 (8, 128)])
+def test_k1_plan_matches_the_card(dev, n, m):
+    B = 1 << 22
+    plan, card = solve_kernel.k1_plan(n, m, B), solve_kernel.card_plan(n, m,
+                                                                       B)
+    for key in ("lanes_per_block", "threads", "staged", "smem_bytes"):
+        assert card[key] == plan[key], key
+    assert card["blocks_per_sm"] >= 1
+    assert card["grid"] == min(plan["blocks"],
+                               card["blocks_per_sm"] * card["sms"])
 
 
 def test_solve_auto_routes_cold_batch_to_the_kernel(dev):
@@ -660,7 +756,11 @@ def test_k8_kernel_matches_plain(dev, case):
 
 
 def test_solve_fused_packed_gives_k1_verdicts(dev):
+    # K8 launches K1's engine: Y, U, iters and state equal bit for bit
     primal, dual = _workload(dev, 7, 1 << 14)
+    args, kw = solve_kernel.fused_inputs(primal, dual, None, SMOKE)
+    assert _bits_equal(packed_kernel.fused_full_solve_packed(*args, **kw),
+                       solve_kernel.fused_full_solve(*args, **kw))
     k8 = packed_kernel.solve_fused_packed(primal, dual, cfg=SMOKE)
     k1 = solve_kernel.solve_fused(primal, dual, cfg=SMOKE)
     assert bool((k8.converged == k1.converged).all())

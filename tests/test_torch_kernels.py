@@ -230,3 +230,61 @@ def test_aligned16_copies_only_a_misaligned_view():
     got = kernels._aligned16(odd)
     assert odd.is_contiguous() and odd.data_ptr() % 16 == 4
     assert got.data_ptr() % 16 == 0 and torch.equal(got, odd)
+
+
+def test_k1_plan_main_path():
+    # the main path's N = 28, M = 7: K2's block (7 row groups x 32 lane
+    # groups, 128 slots), every matrix staged, two blocks per SM
+    p = solve_kernel.k1_plan(28, 7, 1 << 22)
+    assert (p["threads"], p["lanes_per_block"], p["staged"]) == (224, 128, 7)
+    assert p["blocks"] == (1 << 22) // 128
+    assert p["geometry_floats"] * 4 == solve_kernel.smem_bytes(28, 7)
+    assert p["smem_bytes"] == 4 * (2884 + 128 * (5 * 28 + 28 + 7 + 12) + 4)
+    assert 2 * (p["smem_bytes"] + 1024) <= 233472
+
+
+def test_k1_plan_takes_every_resident_shape():
+    limit = kernels.SMEM_LIMIT_BYTES
+    shapes = [(n, m) for n in range(1, 129) for m in range(1, 129)
+              if solve_kernel.fits_resident(n, m)]
+    assert (128, 28) in shapes and (120, 30) in shapes
+    for n, m in shapes:
+        p = solve_kernel.k1_plan(n, m, 1)
+        assert 1 <= p["lanes_per_block"] and p["smem_bytes"] <= limit
+        assert 2 <= p["staged"] <= len(solve_kernel.K1_MATRICES)
+        assert p["threads"] == p["row_groups"] * p["lane_groups"] \
+            <= solve_kernel.K1_MAX_THREADS
+    # the card test's n120_m30 keeps every matrix staged at 4 slots; at
+    # N = 128, M = 28 Gp' and Qp^-1, Qp stay in device memory
+    assert solve_kernel.k1_plan(120, 30, 1000)["staged"] == 7
+    assert solve_kernel.k1_plan(128, 28, 1000)["staged"] == 4
+
+
+@pytest.mark.parametrize("n,m,B", [(129, 7, 1), (28, 129, 1), (128, 32, 1),
+                                   (0, 7, 1), (28, 7, 0)])
+def test_k1_plan_raises_past_the_limits(n, m, B):
+    with pytest.raises(ValueError):
+        solve_kernel.k1_plan(n, m, B)
+
+
+@pytest.mark.parametrize("n,m", [(28, 7), (5, 9), (30, 30)])
+def test_engine_geometry_layout(n, m):
+    rng = np.random.default_rng(n + m)
+    mats = [torch.as_tensor(rng.normal(size=s).astype(np.float32))
+            for s in ((n, n), (n, n), (n, n), (n, m), (m, m), (m, m))]
+    qdn, qdp, qd, gp, qp, qpi = mats
+    geo = solve_kernel.engine_geometry(qdn, qdp, qd, gp, qp, qpi)
+    ldn, ldm = -(-n // 4) * 4, -(-m // 4) * 4
+    assert geo.numel() == solve_kernel.k1_plan(n, m, 1)["geometry_floats"]
+    # each matrix depth-major: block[d, r] is the (r, d) entry of what its
+    # product multiplies, rows past the matrix zero
+    want = [(qdn, ldn), (qdp, ldn), (qd, ldn), (gp.T, ldm), (gp, ldn),
+            (qpi, ldm), (qp, ldm)]
+    off = 0
+    for A, pad in want:
+        block = geo[off:off + A.shape[1] * pad].reshape(A.shape[1], pad)
+        assert torch.equal(block[:, :A.shape[0]], A.T)
+        assert not block[:, A.shape[0]:].any()
+        assert off % 4 == 0
+        off += A.shape[1] * pad
+    assert off == geo.numel()

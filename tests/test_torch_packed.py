@@ -205,7 +205,11 @@ def test_k8_refuses_what_does_not_pack():
     assert pk.fits_packed(8, 64)
     assert not pk.fits_packed(65, 16)          # G = 1
     assert not pk.fits_packed(64, 3000)        # past shared memory
-    assert pk.smem_bytes(28, 7) < 48 * 1024
+    # K8 launches K1's engine: its fit test and shared memory are K1's
+    assert not pk.fits_packed(56, 129)         # K1 takes no M > 128
+    assert pk.fits_packed(28, 7) == solve_kernel.fits_resident(28, 7)
+    plan = solve_kernel.k1_plan(28, 7, 1 << 22)
+    assert 2 * (plan["smem_bytes"] + 1024) <= 233472   # two blocks per SM
 
 
 def test_split_free_dual_raises_by_name():
