@@ -26,7 +26,9 @@ at full size and times them:
   ``solve_batched``) and the streamed path at B = 8, N = 2048, M = 512
   (``solve_auto`` -> ``"mixed"`` -> K7 bf16 then the plain f32 refine,
   ``solve_fused_distinct_tiled`` -> K6 on the split-free dual, and the plain
-  ``solve_batched``), each under its JAX benchmark's configuration;
+  ``solve_batched``), each under its JAX benchmark's configuration; K6 and
+  K7 are cooperative launches that keep each instance's matrix in shared
+  memory (their plans, ``k6_plan`` and ``k7_plan``, are printed);
 * the packed whole solve (kernel K8): ``solve_fused_packed`` on the main
   path's batch, timed beside K1 on the same call, with K1's verdicts and
   bits (K1 and K8 launch one engine, ``csrc/lane_tile_solve.cuh``: a
@@ -51,7 +53,7 @@ their batches and K4 at the streamed workload, each also against its own
 relaunch, bit for bit; K8 also gives K1's bits on each of its cases,
 and on the accelerated H=16 case, since it sums in K1's order, it is held
 to its card test's bars (``accel_h16_parity``).  The times of the kernels
-redesigned for Hopper (K5, K3 bf16, K4, K2, K1, K8) under their previous
+redesigned for Hopper (K5, K3 bf16, K4, K2, K1, K8, K6, K7 bf16) under their previous
 designs are printed on a line of their own (``earlier_times``), quoted
 from PERF.md, not measured here.  K7's row is its bf16 mode, the one its
 path runs, timed in two windows in turns
@@ -67,10 +69,12 @@ read once, each output written once) over 3.35 TB/s and its operations
 (counted from this run's iterations) over 67 TFLOP/s in float32 or
 989 TFLOP/s in bf16 — and ``bound_by`` names the term.  The floors of the
 designs (not bounds of the function) are printed on the ``stream_floors``
-line: for K4, K6 and K7 f32 the time to re-read their matrices past the
-50 MB L2 on every pass; for K3 the time to read Q once per update at the
-HBM rate; for K5 its inputs once from HBM and its resident rows' reads at
-the aggregate shared-memory rate.  No single PyTorch call computes any of these
+line: for K4 the time to re-read its matrix past the 50 MB L2 on every
+pass; for K3 the time to read Q once per update at the HBM rate; for K5
+its inputs once from HBM and its resident rows' reads at the aggregate
+shared-memory rate; for K6 and K7 each term by name (``*_terms_ms``): the
+matrices once from HBM, the resident rows at the shared-memory rate and
+the rows past shared memory again from HBM on every pass.  No single PyTorch call computes any of these
 functions, so ``library_ms`` is null.  Every phase prints one JSON line and
 raises on failure.  The last two lines are the kernel table
 (``{"kernels": [...]}``) and the result line (``{"ok": true, "device":
@@ -129,17 +133,19 @@ CLI_FLAGS = ["--y0", "0.01", "--accel-every", "4", "--check-every", "8",
 CLI_SEED = 3
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32 on the
-#: CUDA cores and bf16 on the tensor cores, FLOP/s; and the L2 size
-HBM_BPS, F32_FLOPS, BF16_FLOPS, L2_BYTES = 3.35e12, 67e12, 989e12, 50e6
+#: CUDA cores and bf16 on the tensor cores, FLOP/s
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 #: aggregate shared-memory bandwidth of an H100 SXM: 132 SMs x 128 bytes
-#: per clock at the 1.98 GHz boost clock (the K5 design's read floor)
+#: per clock at the 1.98 GHz boost clock (the K5, K6 and K7 designs' read
+#: floor)
 SMEM_BPS = 132 * 128 * 1.98e9
 #: the redesigned kernels' times under their previous designs, quoted
 #: from PERF.md section 6 (each from the last chip run before its
 #: redesign, on an H100 80GB HBM3, 700 W): printed on a line of their own,
 #: never in the kernel table
 EARLIER_MS = {"k5": 4589.51, "k3_bfloat16": 6.925, "k4": 2088.37,
-              "k2": 7.762, "k1": 602.13, "k8": 478.80}
+              "k2": 7.762, "k1": 602.13, "k8": 478.80, "k6": 347.38,
+              "k7_bfloat16": 0.5052}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1115,6 +1121,13 @@ def main() -> int:
     k7_kw = dict(num_iters=ds_cfg.check_every, den_eps=ds_cfg.den_eps)
     k7_streams = {mode: distinct_tiled_kernel.distinct_streamed_matrix(
         sd.Qd, sd.theta, mode) for mode in ("float32", "bfloat16")}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k7_plans = {mode: distinct_tiled_kernel.k7_plan(N_DS, B_DS, mode, sms)
+                for mode in k7_streams}
+    k6_plan = distinct_tiled_kernel.k6_plan(N_DS, M_DS, B_DS, sms)
+    emit("k7_plan", **k7_plans)
+    emit("k6_plan", **k6_plan)
+    floor_terms = {}
     k7 = distinct_tiled_kernel.distinct_streamed_iterations
     k7_plain = distinct_tiled_kernel.distinct_streamed_iterations_reference
     for mode, (Q, th) in k7_streams.items():
@@ -1188,33 +1201,57 @@ def main() -> int:
              cuda_ms(lambda: k7_plain(*k7_args, **k7_kw), 5)]
         k7_windows[mode] = dict(kernel_ms=w[0::2], plain_ms=w[1::2])
         times["k7_" + mode] = ((w[0] + w[2]) / 2, (w[1] + w[3]) / 2)
-        q_bytes = Q.numel() * Q.element_size()
         bounds["k7_" + mode] = bound(
             stored_bytes(Q, th, sd.Fdn, sd.Fdp, Y7), 4 * Y7.numel(),
             k7_kw["num_iters"] * 4.0 * N_DS * N_DS * B_DS,
             F32_FLOPS if mode == "float32" else BF16_FLOPS)
-        if q_bytes > L2_BYTES:
-            floors["k7_" + mode] = stream_floor_ms(k7_kw["num_iters"]
-                                                   * q_bytes)
+        # the design's floor: the matrices once from HBM (first update),
+        # then per later update the resident rows at the shared-memory
+        # rate beside the remainder at the HBM rate (an L2 evict_last
+        # hint on it gained nothing on an H100, PERF.md: it does not stay
+        # in L2 across updates)
+        plan = k7_plans[mode]
+        terms = {"hbm_once": plan["matrix_bytes"] / HBM_BPS * 1e3,
+                 "shared_memory_per_update":
+                     plan["resident_bytes"] / SMEM_BPS * 1e3,
+                 "remainder_hbm_per_update":
+                     plan["l2_remainder_bytes"] / HBM_BPS * 1e3}
+        floor_terms["k7_" + mode] = terms
+        floors["k7_" + mode] = terms["hbm_once"] + (
+            k7_kw["num_iters"] - 1) * max(
+                terms["shared_memory_per_update"],
+                terms["remainder_hbm_per_update"])
     times["k6"] = (cuda_ms(lambda: k6(*s_args, **s_kw), 1, warmup=False),
                    cuda_ms(lambda: k6_plain(*s_args, **s_kw), 1,
                            warmup=False))
-    k6_flops, k6_stream = solve_work(
+    k6_flops, k6_smem = solve_work(
         N_DS, M_DS, out_k6[2], ds_cfg.check_every, ds_cfg.accel_every,
-        4.0 * N_DS ** 2, 4.0 * (N_DS ** 2 + 2 * N_DS * M_DS + 2 * M_DS ** 2),
-        12.0 * N_DS ** 2)
+        4.0 * N_DS ** 2, 4.0 * N_DS ** 2, 12.0 * N_DS ** 2)
     bounds["k6"] = bound(stored_bytes(*s_args), sum(
         t.numel() * t.element_size() for t in out_k6), k6_flops, F32_FLOPS)
-    floors["k6"] = stream_floor_ms(k6_stream)
+    # the design's floor, its phases in sequence: each instance's Qd_hat,
+    # Gp, Qp and Qp^-1 once from HBM (the check re-reads the last three
+    # from L2, whose rate this run does not measure); its rows' passes at
+    # the shared-memory rate for the rows the plan keeps there, at the HBM
+    # rate for the rest; the slot barriers are not in it
+    # (tools/probe_k6.py times them)
+    kept = 1.0 - k6_plan["streamed_rows"] / N_DS
+    floor_terms["k6"] = {
+        "hbm_once": stored_bytes(*s_args[:5]) / HBM_BPS * 1e3,
+        "shared_memory": kept * k6_smem / SMEM_BPS * 1e3,
+        "remainder_hbm": (1.0 - kept) * k6_smem / HBM_BPS * 1e3}
+    floors["k6"] = sum(floor_terms["k6"].values())
     emit("distinct_kernel_times", nvidia_smi=smi,
          k7_num_iters=ds_cfg.check_every, k7_windows=k7_windows,
          **{f"{k}_ms": v[0] for k, v in times.items()},
          **{f"{k}_plain_ms": v[1] for k, v in times.items()})
-    # the floors of the designs at this run's iterations: K4, K6, K7 f32
-    # re-read matrices past the L2 each pass; K3 bf16 reads Q per update;
-    # K5 reads its inputs once from HBM and its rows from shared memory.
-    # The kernel table's bound_ms is the function's
-    emit("stream_floors", **{f"{k}_ms": v for k, v in floors.items()})
+    # the floors of the designs at this run's iterations: K4 re-reads its
+    # matrix past the L2 each pass; K3 reads Q per update; K5, K6 and K7
+    # read their matrices once from HBM, then from shared memory (and K7's
+    # remainder from HBM again).  The kernel table's bound_ms is the
+    # function's
+    emit("stream_floors", **{f"{k}_ms": v for k, v in floors.items()},
+         **{f"{k}_terms_ms": v for k, v in floor_terms.items()})
     del sp, sd, sd_free, k7_streams, Y7, s_args, out_k6
     torch.cuda.empty_cache()
 

@@ -1,39 +1,30 @@
-// The cluster body shared by the distinct-geometry whole solves K5
-// (full_solve_distinct.cu) and K6 (full_solve_distinct_tiled.cu).
+// The cluster body of K5 (full_solve_distinct.cu), the distinct-geometry
+// whole solve for instances whose Qd rows fit a cluster's shared memory.
 //
 // One instance runs on a thread-block CLUSTER of C blocks.  Block rank r
-// owns a contiguous range of the n rows (of Qd or Qd_hat, and of Gp) and of
-// the m rows of Qp, Qp^-1 (split_rows), and keeps full copies of the
-// instance's iterate y, the accel direction p and candidate yn, t = Gp'y +
-// Fp and U in its shared memory.  After each sweep the blocks publish their
-// new rows in shared memory and read each other's through distributed shared
-// memory; cluster.sync() is the Jacobi barrier.  Exchange buffers alternate
-// between two slots, so one cluster barrier per exchange suffices: a slot is
+// owns a contiguous range of the n rows (of Qd and of Gp) and of the m rows
+// of Qp, Qp^-1 (split_rows), and keeps full copies of the instance's
+// iterate y, the accel direction p and candidate yn, t = Gp'y + Fp and U in
+// its shared memory.  After each sweep the blocks publish their new rows in
+// shared memory and read each other's through distributed shared memory;
+// cluster.sync() is the Jacobi barrier.  Exchange buffers alternate between
+// two slots, so one cluster barrier per exchange suffices: a slot is
 // written again only two exchanges later, after a barrier every reader has
 // passed.  Per-instance scalars are block sums over the owned rows in fixed
-// order, then the ranks' partials in rank order — the same in every block of
-// the cluster, so all its blocks take the same branches and return together
-// (the per-instance early exit), and a second launch repeats every bit.
+// order, then the ranks' partials in rank order — the same in every block
+// of the cluster, so all its blocks take the same branches and return
+// together (the per-instance early exit), and a second launch repeats every
+// bit.
 //
-// The two kernels differ only in
-//   * the matrix whose rows a block multiplies by (SPLIT):
-//       K6: Qd_hat = Qd with diagonal max(diag, 0) + theta; the update is
-//           num = relu(-Qd_hat) y + theta y + Fd^-, den = relu(Qd_hat) y +
-//           Fd^+, and the Qd products subtract theta x again;
-//       K5: Qd itself; the update takes relu(+-Qd) off the diagonal (bit for
-//           bit the materialized splits' entries, dual.py) and the splits'
-//           own diagonals dn, dp, read once per instance:
-//           num = relu(-Qd)_off y + dn y + Fd^-, den = relu(Qd)_off y +
-//           dp y + Fd^+;
-//   * where the owned rows of Qd live (resident): in shared memory, copied
-//     once per launch with cp.async, rows zero-padded to a multiple of 4
-//     floats (K5 where they fit), or in global memory and L2 (K6, and K5
-//     past the cluster's capacity).  Gp, Qp and Qp^-1 are read from global
-//     memory and L2 at the check cadence in either case;
-//   * the gap: K6 either gap, K5 always the explicit one (gap_comp = 0);
-//   * acceleration: accel_every < check_every runs the accel step every
-//     accel_every updates (K5's chunks); K6 passes accel_every in
-//     {0, check_every}.
+// The update takes relu(+-Qd) off the diagonal (bit for bit the
+// materialized splits' entries, dual.py) and the splits' own diagonals dn,
+// dp, read once per instance: num = relu(-Qd)_off y + dn y + Fd^-,
+// den = relu(Qd)_off y + dp y + Fd^+.  The owned rows of Qd are resident in
+// shared memory, copied once per launch with cp.async and zero-padded to a
+// multiple of 4 floats, where they fit, else read from global memory and
+// L2; Gp, Qp and Qp^-1 are read from global memory and L2 at the check
+// cadence in either case.  The gap is the explicit one; accel_every <
+// check_every runs the accel step every accel_every updates.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -47,9 +38,8 @@ namespace cg = cooperative_groups;
 namespace pqp {
 
 struct ClusterSolveArgs {
-  const float* q;                      // (B, n, n): Qd (K5) or Qd_hat (K6)
-  const float* theta;                  // K6: (B, n)
-  const float *dn, *dp;                // K5: the splits' diagonals (B, n)
+  const float* q;                      // Qd (B, n, n)
+  const float *dn, *dp;                // the splits' diagonals (B, n)
   const float *gp, *qp, *qpi;          // (B, n, m), (B, m, m), or shared
   long long gp_stride, qp_stride;      // instance strides (0 = shared)
   const float *fp, *fd, *fdp, *fdn, *kps, *mp, *md, *y0;  // (B, len)
@@ -59,18 +49,8 @@ struct ClusterSolveArgs {
   float eaj, erj;
   int strict;
   float den_eps;
-  int gap_comp;
   int resident;                        // Qd rows in shared memory
 };
-
-// Rows [off, off + cnt) of `total` split over `parts` ranks as evenly as
-// possible, the first total % parts ranks one row more.
-__host__ __device__ inline void split_rows(int total, int parts, int rank,
-                                           int& off, int& cnt) {
-  const int base = total / parts, rem = total % parts;
-  cnt = base + (rank < rem ? 1 : 0);
-  off = rank * base + (rank < rem ? rank : rem);
-}
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
@@ -85,29 +65,16 @@ __host__ __device__ inline int slot_ld(int n, int m, int C) {
 }
 
 // Shared memory of one block, in floats: the resident Qd rows, then y, p,
-// yn (n); t, u (m); the own-row
-// vectors theta or the split diagonals, fd, fdn, fdp, kps, y at the check,
-// gradient or flags, row values (8 x own_ld, 9 for K5); two exchange
-// slots; block reductions and cluster totals.
+// yn (n); t, u (m); the own-row vectors (9 x own_ld): the split diagonals,
+// fd, fdn, fdp, kps, y at the check, gradient or flags, row values; two
+// exchange slots; block reductions and cluster totals.
 __host__ __device__ inline size_t cluster_smem_floats(int n, int m, int C,
-                                                      bool split,
                                                       bool resident) {
   const size_t mat =
       resident ? (size_t)((n + C - 1) / C) * round4(n) : (size_t)0;
   return mat + 3 * (size_t)round4(n) + 2 * (size_t)round4(m) +
-         (split ? 9 : 8) * (size_t)own_ld(n, m, C) +
+         9 * (size_t)own_ld(n, m, C) +
          2 * (size_t)slot_ld(n, m, C) + 8 * 32 + 8;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
 }
 
 // Copy `rows` rows of `cols` floats (global row stride `cols`) into shared
@@ -135,7 +102,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
 // This block's part of one instance.
 struct Part {
   cg::cluster_group cl;
-  // own rows of Qd (or Qd_hat), of Gp, of Qp and of Qp^-1: row i at
+  // own rows of Qd, of Gp, of Qp and of Qp^-1: row i at
   // base + i * ld, dotted over ld entries (resident rows are zero-padded to
   // round4; global rows have ld = n or m and are read as float4 when vq/vg)
   const float *qrow, *grow, *prow, *pirow;
@@ -145,7 +112,7 @@ struct Part {
   float *y, *p, *yn;                    // full vectors (n)
   float *t, *u;                         // full vectors (m)
   float *th, *fd, *fdn, *fdp, *kps, *yold, *g, *w;  // own rows
-  float* dp;                            // own rows (K5; th holds dn there)
+  float* dp;                            // own rows (th holds dn)
   float* xch;                           // two exchange slots of ldx
   float *red, *tot;                     // block reductions, cluster totals
   int ldx, xc;                          // slot size, exchange counter
@@ -203,23 +170,20 @@ struct Part {
     __syncthreads();  // tot is read before its next write
   }
 
-  // out(i) = Qd[r0 + i, :] . x over the owned rows, one warp per row: K5
-  // reads Qd; K6 reads Qd_hat and takes theta_i x_{r0+i} off again (Qd with
-  // its diagonal clamped).
-  template <bool SPLIT, class F>
+  // out(i) = Qd[r0 + i, :] . x over the owned rows, one warp per row.
+  template <class F>
   __device__ void qd_rows(const float* x, F f) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     for (int i = warp; i < rows; i += blockDim.x >> 5) {
       const float s =
           dist::warp_row_dot(qrow + (long long)i * ldq, x, ldq, vq);
-      if (lane == 0) f(i, SPLIT ? s : s - th[i] * x[r0 + i]);
+      if (lane == 0) f(i, s);
     }
   }
 };
 
 // The four-part verdict at y (as the TPU kernels' check).  Leaves U in P.u.
-template <bool SPLIT>
-__device__ bool check(Part& P, const ClusterSolveArgs& a) {
+__device__ inline bool check(Part& P, const ClusterSolveArgs& a) {
   const int m = P.m;
   // partial Gp'y over the owned rows, one thread per column
   float* s = P.slot();
@@ -250,7 +214,7 @@ __device__ bool check(Part& P, const ClusterSolveArgs& a) {
   dist::rows_times(P.grow, P.rows, P.ldg, P.u, P.vg, [&](int i, float v) {
     P.g[i] = (v > P.kps[i]) ? 1.f : 0.f;
   });
-  P.qd_rows<SPLIT>(P.y, [&](int i, float v) { P.w[i] = v; });
+  P.qd_rows(P.y, [&](int i, float v) { P.w[i] = v; });
   __syncthreads();
   float acc[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   for (int i = threadIdx.x; i < P.rows; i += blockDim.x) {
@@ -272,15 +236,8 @@ __device__ bool check(Part& P, const ClusterSolveArgs& a) {
   const float s1 = acc[0], s2 = acc[1];
   const float jd = 0.5f * s1 + s2 + 0.5f * P.md;
   const float jp = 0.5f * acc[3] + acc[4] + 0.5f * P.mp;
-  float gap;
-  bool weak_fail;
-  if (a.gap_comp) {  // Jp(U(Y)) + Jd(Y) = Y'(Qd Y + Fd)
-    gap = s1 + s2;
-    weak_fail = gap > 0.f;
-  } else {
-    gap = jp + jd;
-    weak_fail = jp > -jd;
-  }
+  const float gap = jp + jd;
+  const bool weak_fail = jp > -jd;
   bool fail = (acc[2] > 0.f) || (gap > a.eaj) || (gap / fabsf(jd) > a.erj);
   if (a.strict) fail = fail || weak_fail;
   return !fail;
@@ -289,7 +246,8 @@ __device__ bool check(Part& P, const ClusterSolveArgs& a) {
 // One update sweep over the owned rows into the exchange slot s, from
 // operands passed by value: nothing of the caller's Part is read through
 // local memory (the shared-memory carve-out leaves L1 little room for it).
-template <bool SPLIT>
+// Inlined: a call would spill the caller's live registers to local memory
+// around every update.
 __device__ __forceinline__ void update_rows(
     const float* qrow, int ldq, bool vq, const float* y, int r0, int rows,
     const float* th, const float* dp, const float* fdn, const float* fdp,
@@ -298,63 +256,37 @@ __device__ __forceinline__ void update_rows(
   for (int i = warp; i < rows; i += blockDim.x >> 5) {
     const float* row = qrow + (long long)i * ldq;
     float neg, pos;
-    if (SPLIT)
-      dist::warp_row_split_dots(row, y, ldq, vq, r0 + i, neg, pos);
-    else
-      dist::warp_row_relu_dots(row, y, ldq, vq, neg, pos);
+    dist::warp_row_split_dots(row, y, ldq, vq, r0 + i, neg, pos);
     if (lane == 0) {
       const float yi = y[r0 + i];
-      float num, den;
-      if (SPLIT) {  // th holds the num split's diagonal
-        num = (neg + th[i] * yi) + fdn[i];
-        den = guard_den((pos + dp[i] * yi) + fdp[i], den_eps);
-      } else {
-        num = neg + th[i] * yi + fdn[i];
-        den = guard_den(pos + fdp[i], den_eps);
-      }
+      // th holds the num split's diagonal
+      const float num = (neg + th[i] * yi) + fdn[i];
+      const float den = guard_den((pos + dp[i] * yi) + fdp[i], den_eps);
       s[i] = (num / den) * yi;
     }
   }
 }
 
-// K6's sweep as a function of its own, as K4's update tile (its rows are
-// long, 2,048 entries at its path's n).  K5's sweep over short rows is
-// inlined: a call would spill the caller's live registers to local memory
-// around every update.
-static __device__ __noinline__ void update_rows_call(
-    const float* qrow, int ldq, bool vq, const float* y, int r0, int rows,
-    const float* th, const float* fdn, const float* fdp, float* s,
-    float den_eps) {
-  update_rows<false>(qrow, ldq, vq, y, r0, rows, th, nullptr, fdn, fdp, s,
-                     den_eps);
-}
-
 // One update: the owned rows, published and gathered into P.y.
-template <bool SPLIT>
 __device__ __forceinline__ void update(Part& P, float den_eps) {
-  if constexpr (SPLIT)
-    update_rows<true>(P.qrow, P.ldq, P.vq, P.y, P.r0, P.rows, P.th, P.dp,
-                      P.fdn, P.fdp, P.slot(), den_eps);
-  else
-    update_rows_call(P.qrow, P.ldq, P.vq, P.y, P.r0, P.rows, P.th, P.fdn,
-                     P.fdp, P.slot(), den_eps);
+  update_rows(P.qrow, P.ldq, P.vq, P.y, P.r0, P.rows, P.th, P.dp, P.fdn,
+              P.fdp, P.slot(), den_eps);
   P.gather(P.y, P.n);
 }
 
 // The safeguarded projected-gradient step (solver.accel_step): three passes
 // over the owned rows of the Qd product.
-template <bool SPLIT>
-__device__ void accel_step(Part& P) {
+__device__ inline void accel_step(Part& P) {
   const int n = P.n;
   // gradient and direction on the owned rows; p gathered
-  P.qd_rows<SPLIT>(P.y, [&](int i, float v) {
+  P.qd_rows(P.y, [&](int i, float v) {
     const float y = P.y[P.r0 + i];
     const float gr = v + P.fd[i];
     P.g[i] = gr;
     P.slot()[i] = (y > 0.f || gr < 0.f) ? -gr : 0.f;
   });
   P.gather(P.p, n);
-  P.qd_rows<SPLIT>(P.p, [&](int i, float v) { P.w[i] = v; });
+  P.qd_rows(P.p, [&](int i, float v) { P.w[i] = v; });
   __syncthreads();
   float a[3] = {0.f, 0.f, 0.f};  // p'Qd p, p'p, y'(grad + Fd)
   for (int i = threadIdx.x; i < P.rows; i += blockDim.x) {
@@ -369,7 +301,7 @@ __device__ void accel_step(Part& P) {
   for (int i = threadIdx.x; i < P.rows; i += blockDim.x)
     s[i] = relu_nan(P.y[P.r0 + i] + alpha * P.p[P.r0 + i]);
   P.gather(P.yn, n);
-  P.qd_rows<SPLIT>(P.yn, [&](int i, float v) { P.w[i] = v; });
+  P.qd_rows(P.yn, [&](int i, float v) { P.w[i] = v; });
   __syncthreads();
   float b[2] = {0.f, 0.f};  // yn'Qd yn, Fd'yn
   for (int i = threadIdx.x; i < P.rows; i += blockDim.x) {
@@ -386,7 +318,6 @@ __device__ void accel_step(Part& P) {
 }
 
 // The whole solve of instance blockIdx.x / C on this block's cluster.
-template <bool SPLIT>
 __device__ __forceinline__ void cluster_solve(const ClusterSolveArgs& a) {
   extern __shared__ float4 smem4[];
   Part P{cg::this_cluster()};
@@ -439,7 +370,7 @@ __device__ __forceinline__ void cluster_solve(const ClusterSolveArgs& a) {
   P.g = P.yold + ldr;
   P.w = P.g + ldr;
   P.dp = P.w + ldr;
-  P.xch = P.w + (SPLIT ? 2 : 1) * ldr;
+  P.xch = P.w + 2 * ldr;
   P.red = P.xch + 2 * P.ldx;
   P.tot = P.red + 8 * 32;
   P.fp = a.fp + (long long)b * m;
@@ -454,12 +385,8 @@ __device__ __forceinline__ void cluster_solve(const ClusterSolveArgs& a) {
   for (int i = threadIdx.x; i < ldm; i += blockDim.x) P.t[i] = P.u[i] = 0.f;
   for (int i = threadIdx.x; i < P.rows; i += blockDim.x) {
     const long long e = on + P.r0 + i;
-    if (SPLIT) {  // the splits' diagonals: th holds the num side's
-      P.th[i] = a.dn[e];
-      P.dp[i] = a.dp[e];
-    } else {
-      P.th[i] = a.theta[e];
-    }
+    P.th[i] = a.dn[e];  // the splits' diagonals: th holds the num side's
+    P.dp[i] = a.dp[e];
     P.fd[i] = a.fd[e];
     P.fdn[i] = a.fdn[e];
     P.fdp[i] = a.fdp[e];
@@ -473,7 +400,7 @@ __device__ __forceinline__ void cluster_solve(const ClusterSolveArgs& a) {
       a.accel_every ? max(1, a.check_every / a.accel_every) : 1;
   int state = kActive, iters = 0;
   for (int h = 1;; h += a.check_every) {
-    const bool ok = check<SPLIT>(P, a);
+    const bool ok = check(P, a);
     if (state != kActive || h > a.max_iters) {
       if (state == kActive) {  // out of iterations: the final verdict
         iters = h;
@@ -499,8 +426,8 @@ __device__ __forceinline__ void cluster_solve(const ClusterSolveArgs& a) {
     for (int i = threadIdx.x; i < P.rows; i += blockDim.x)
       P.yold[i] = P.y[P.r0 + i];
     for (int c = 0; c < chunks; ++c) {
-      for (int j = 0; j < inner; ++j) update<SPLIT>(P, a.den_eps);
-      if (a.accel_every) accel_step<SPLIT>(P);
+      for (int j = 0; j < inner; ++j) update(P, a.den_eps);
+      if (a.accel_every) accel_step(P);
     }
     // stall freeze: the round (updates and accel) left y bit-identical
     float diff[1] = {0.f};
@@ -521,15 +448,15 @@ __device__ __forceinline__ void cluster_solve(const ClusterSolveArgs& a) {
 // the size, the shared memory and the active clusters.
 template <class Kernel>
 cudaError_t pick_cluster(Kernel kernel, int threads, const int* sizes,
-                         int nsizes, int n, int m, int B, bool split,
-                         bool resident, cudaStream_t stream, int& C_out,
-                         size_t& smem_out, int& clusters_out) {
+                         int nsizes, int n, int m, int B, bool resident,
+                         cudaStream_t stream, int& C_out, size_t& smem_out,
+                         int& clusters_out) {
   double best = -1.0;
   for (int k = 0; k < nsizes; ++k) {
     const int C = sizes[k];
     if (C > n) continue;
     const size_t smem =
-        cluster_smem_floats(n, m, C, split, resident) * sizeof(float);
+        cluster_smem_floats(n, m, C, resident) * sizeof(float);
     if (smem > 232448) continue;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,6 +1,6 @@
-// Helpers shared by the distinct-geometry kernels (cluster_solve.cuh for
-// full_solve_distinct.cu and full_solve_distinct_tiled.cu,
-// pqp_iterations_distinct_tiled.cu).
+// Helpers shared by the distinct-geometry kernels: K5 (full_solve_distinct.cu
+// through cluster_solve.cuh), K6 (full_solve_distinct_tiled.cu) and K7
+// (pqp_iterations_distinct_tiled.cu).
 //
 // Layout: every matrix is row-major with a leading instance axis; every
 // per-instance vector is instance-major, element (b, i) at v[b * len + i]
@@ -10,8 +10,8 @@
 // Only Gp is not symmetric; its transposed product sums over columns.
 //
 // Every sum runs in a fixed order — lanes over ascending entries, a warp
-// butterfly, then warps (and cluster ranks) in index order — so a second
-// launch repeats every bit.
+// butterfly, then warps (and ranks) in index order — so a second launch
+// repeats every bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +20,29 @@
 #include "pqp_common.cuh"
 
 namespace pqp {
+
+// Rows [off, off + cnt) of `total` split over `parts` ranks as evenly as
+// possible, the first total % parts ranks one row more.
+__host__ __device__ inline void split_rows(int total, int parts, int rank,
+                                           int& off, int& cnt) {
+  const int base = total / parts, rem = total % parts;
+  cnt = base + (rank < rem ? 1 : 0);
+  off = rank * base + (rank < rem ? rank : rem);
+}
+
+// Asynchronous copies from global to shared memory (cp.async, sm_80+): 16
+// bytes through L2 only, or 4 bytes; the caller commits and waits.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
 namespace dist {
 
 // Sum over a warp by an xor butterfly: every lane ends with the same value.
@@ -61,11 +84,14 @@ __device__ __forceinline__ float warp_row_dot(const float* __restrict__ row,
 }
 
 // Both relu parts of one streamed entry: neg += max(-q, 0) x,
-// pos += max(q, 0) x (NaN kept, as the plain version's clamps).
+// pos += max(q, 0) x (NaN kept, as the plain version's clamps), each relu
+// one max.NaN instruction.  relu_max may give +0 where relu_nan gave -0;
+// a sum that starts at +0 never tells them apart, so the sums keep their
+// bits.
 __device__ __forceinline__ void relu_fma(float q, float x, float& neg,
                                          float& pos) {
-  neg = fmaf(relu_nan(-q), x, neg);
-  pos = fmaf(relu_nan(q), x, pos);
+  neg = fmaf(relu_max(-q), x, neg);
+  pos = fmaf(relu_max(q), x, pos);
 }
 
 // The relu-split dots of one float32 streamed row with x, for one warp.
@@ -132,38 +158,6 @@ __device__ __forceinline__ void warp_row_split_dots(
       an = fmaf(relu_max(-a), x[j], an);
       ap = fmaf(relu_max(a), x[j], ap);
     }
-  }
-  neg = warp_sum(an);
-  pos = warp_sum(ap);
-}
-
-// The same for a bfloat16 streamed row (given as its bits): each entry is
-// exact in float32, and so is its product with a bf16-rounded x.
-__device__ __forceinline__ void warp_row_relu_dots(
-    const unsigned short* __restrict__ row, const float* __restrict__ x,
-    int n, bool vec, float& neg, float& pos) {
-  const int lane = threadIdx.x & 31;
-  float an = 0.f, ap = 0.f;
-  if (vec) {
-    const uint4* r8 = reinterpret_cast<const uint4*>(row);
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-#pragma unroll 2
-    for (int q = lane; q < (n >> 3); q += 32) {
-      const uint4 w = r8[q];
-      const float4 v0 = x4[2 * q], v1 = x4[2 * q + 1];
-      relu_fma(bf16_bits(w.x & 0xffffu), v0.x, an, ap);
-      relu_fma(bf16_bits(w.x >> 16), v0.y, an, ap);
-      relu_fma(bf16_bits(w.y & 0xffffu), v0.z, an, ap);
-      relu_fma(bf16_bits(w.y >> 16), v0.w, an, ap);
-      relu_fma(bf16_bits(w.z & 0xffffu), v1.x, an, ap);
-      relu_fma(bf16_bits(w.z >> 16), v1.y, an, ap);
-      relu_fma(bf16_bits(w.w & 0xffffu), v1.z, an, ap);
-      relu_fma(bf16_bits(w.w >> 16), v1.w, an, ap);
-    }
-  } else {
-#pragma unroll 4
-    for (int j = lane; j < n; j += 32)
-      relu_fma(bf16_bits(row[j]), x[j], an, ap);
   }
   neg = warp_sum(an);
   pos = warp_sum(ap);

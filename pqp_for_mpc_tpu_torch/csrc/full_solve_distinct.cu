@@ -11,7 +11,7 @@
 //
 // Design.  One instance per thread-block CLUSTER of C blocks, its owned Qd
 // rows resident in the cluster's shared memory: the cluster body of
-// cluster_solve.cuh, which K6 runs too.  Block rank r owns a contiguous
+// cluster_solve.cuh.  Block rank r owns a contiguous
 // range of rows; at the start it copies its rows of Qd into its shared
 // memory once (cp.async), and every update, check and accel pass reads them
 // from there; Gp, Qp and Qp^-1 are read from L2 at the check cadence (every
@@ -74,7 +74,7 @@ constexpr int kDistinctThreads = 256;
 
 __global__ void __launch_bounds__(kDistinctThreads, PQP_K5_MIN_BLOCKS)
 full_solve_distinct_kernel(const ClusterSolveArgs a) {
-  cluster_solve<true>(a);
+  cluster_solve(a);
 }
 
 // The cluster size for B instances, with the Qd rows resident or not.
@@ -87,7 +87,7 @@ static cudaError_t k5_pick(int n, int m, int B, bool resident,
   if (err != cudaSuccess) return err;
   const int sizes[] = {PQP_K5_SIZES};
   return pick_cluster(full_solve_distinct_kernel, kDistinctThreads, sizes,
-                      (int)(sizeof(sizes) / sizeof(sizes[0])), n, m, B, true,
+                      (int)(sizeof(sizes) / sizeof(sizes[0])), n, m, B,
                       resident, s, C, smem, clusters);
 }
 
@@ -120,7 +120,7 @@ extern "C" int full_solve_distinct_f32(
   a.iters_out = iters_out; a.state_out = state_out;
   a.n = n; a.m = m; a.max_iters = max_iters; a.check_every = check_every;
   a.accel_every = accel_every; a.eaj = eaj; a.erj = erj;
-  a.strict = strict; a.den_eps = den_eps; a.gap_comp = 0;
+  a.strict = strict; a.den_eps = den_eps;
   a.resident = resident != 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int C = 0, clusters = 0;

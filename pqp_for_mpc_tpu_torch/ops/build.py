@@ -78,14 +78,15 @@ SIGNATURES = {
     "full_solve_distinct_cluster": [_I] * 4 + [_P],
     # qh, theta, gp, gp_stride, qp, qpi, qp_stride,
     # fp, fd, fdp, fdn, kps, mp, md, y0, y_out, u_out, iters_out, state_out,
-    # n, m, B, max_iters, check_every, accel, eaj, erj, strict, den_eps,
-    # gap_comp, stream
+    # xch, arrive, n, m, B, max_iters, check_every, accel, eaj, erj, strict,
+    # den_eps, gap_comp, per_inst, slots, resident, staged, ranks, ldx,
+    # stream
     "full_solve_distinct_tiled_f32": [_P] * 3 + [_L] + [_P] * 2 + [_L]
-    + [_P] * 12 + [_I] * 6 + [_F, _F, _I, _F, _I, _P],
+    + [_P] * 14 + [_I] * 6 + [_F, _F, _I, _F, _I] + [_I] * 6 + [_P],
     # q, q_bf16, theta, fdn, fdp, y, y_out, y_tmp, n, B, num_iters,
-    # den_eps, stream
+    # den_eps, blocks, resident, stream
     "pqp_iterations_distinct_tiled": [_P, _I] + [_P] * 6 + [_I] * 3
-    + [_F, _P],
+    + [_F, _I, _I, _P],
 }
 
 

@@ -12,16 +12,20 @@ geometry (:mod:`pqp_for_mpc_tpu_torch.ops.tiled_kernel`):
   instance's rounded negative rowsums (``solve_mixed``'s consistency rule);
 * K7, :func:`distinct_streamed_iterations` (``csrc/
   pqp_iterations_distinct_tiled.cu``): ``num_iters`` updates on that
-  matrix, one launch per update, counted per stream type in
+  matrix in one cooperative launch, counted per stream type in
   ``distinct_streamed_iterations.launches``; the bulk engine of
-  ``solve_mixed`` on 3-D ``Qd``.  :func:`fused_pqp_iterations_distinct_tiled`
-  keeps the JAX signature (unsplit ``Qd`` and ``theta``) and builds the
-  matrix on every call;
+  ``solve_mixed`` on 3-D ``Qd``.  The matrices are read from device memory
+  once per launch: each block keeps as many of its rows as fit in shared
+  memory for the later updates (:func:`k7_plan`).
+  :func:`fused_pqp_iterations_distinct_tiled` keeps the JAX signature
+  (unsplit ``Qd`` and ``theta``) and builds the matrix on every call;
 * K6, :func:`fused_full_solve_distinct_tiled` (``csrc/
-  full_solve_distinct_tiled.cu``): the whole solve in one launch — check
-  pass with ``Y'Qd_hat``, ``Y'Gp`` and the ``Gp U`` feasibility rows, either
-  gap, accel at the check cadence, stall freeze over the whole round, per-
-  instance early exit.  :func:`solve_fused_distinct_tiled` is an explicit
+  full_solve_distinct_tiled.cu``): the whole solve in one cooperative
+  launch — check pass with ``Y'Qd_hat``, ``Y'Gp`` and the ``Gp U``
+  feasibility rows, either gap, accel at the check cadence, stall freeze
+  over the whole round, per-instance early exit.  Each instance is spread
+  over many blocks that keep its rows of ``Qd_hat`` in their shared memory
+  as far as they fit, a few instances side by side (:func:`k6_plan`).  :func:`solve_fused_distinct_tiled` is an explicit
   entry point: the router never picks it.  It takes a split-free dual.
 
 The TPU's slab heights (``BLOCK_N``, ``BLOCK_N_BF16``) and its padding rule
@@ -32,6 +36,7 @@ and a failed build or a refused launch raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -52,7 +57,144 @@ from pqp_for_mpc_tpu_torch.solver import _as2d, _mv, _mvT
 
 #: largest N of K7: the product's copy of one instance's y in shared memory
 K7_N_MAX = SMEM_LIMIT_BYTES // 4
+#: SMs of an H100 SXM: the plans' default (the wrappers pass the card's)
+H100_SMS = 132
+#: threads of a K6 or K7 block (one block per SM); K6's instance sums run in
+#: the order of the previous design's blocks per instance, at most
+#: K6_RANKS (``csrc/full_solve_distinct_tiled.cu``: ``kK6MaxRanks``), with
+#: at most K6_MAX_SUMS values per reduction (``kK6MaxK``)
+K67_THREADS, K6_RANKS, K6_MAX_SUMS = 512, 16, 3
+#: bytes of Qd_hat rows that instances side by side may re-read from global
+#: memory on every pass: half the 50 MB L2 (K6's plan; at N=2048 13.0 MB
+#: per update paid more than 29.8 MB, 46.6 MB lost)
+K6_L2_BUDGET = 25_000_000
 
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _resident_total(total: int, blocks: int, resident: int) -> int:
+    """Rows kept in shared memory when ``total`` rows are split evenly over
+    ``blocks`` (``split_rows``) and each keeps at most ``resident``."""
+    base, rem = divmod(total, blocks)
+    return rem * min(base + 1, resident) + (blocks - rem) * min(base,
+                                                                 resident)
+
+
+def k7_plan(n: int, B: int, dtype: str = "bfloat16",
+            sms: int = H100_SMS) -> dict:
+    """K7's layout for ``B`` instances of ``n`` rows with a ``dtype`` stream
+    on a card of ``sms`` SMs, as the kernel runs it: one block of
+    :data:`K67_THREADS` threads per SM; the ``B n`` rows split evenly over
+    the blocks in instance-major order; each block keeps its last
+    ``resident_rows`` rows in shared memory (after y, staged in the stream's
+    type), the most that fit :data:`SMEM_LIMIT_BYTES`.  ``resident_bytes``
+    are read from device memory once per launch, ``l2_remainder_bytes`` on
+    every update (from L2 where they fit it)."""
+    if dtype not in STREAM_DTYPES:
+        raise ValueError(f"dtype must be one of {tuple(STREAM_DTYPES)}, "
+                         f"got {dtype!r}")
+    if not 1 <= n <= K7_N_MAX or B < 1 or sms < 1:
+        raise ValueError(f"k7_plan needs 1 <= n <= {K7_N_MAX}, B, sms >= 1; "
+                         f"got n={n}, B={B}, sms={sms}")
+    size = 2 if dtype == "bfloat16" else 4
+    row = n * size
+    x_bytes = -(-row // 16) * 16
+    total = B * n
+    rows = -(-total // sms)
+    resident = min(rows, (SMEM_LIMIT_BYTES - x_bytes) // row)
+    kept = _resident_total(total, sms, resident)
+    return dict(n=n, batch=B, dtype=dtype, blocks=sms, threads=K67_THREADS,
+                rows_per_block=rows, resident_rows=resident,
+                smem_bytes=x_bytes + resident * row,
+                matrix_bytes=total * row, resident_bytes=kept * row,
+                l2_remainder_bytes=(total - kept) * row,
+                vector_rows=n % (16 // size) == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _k7_launch(n: int, B: int, dtype: str, sms: int) -> tuple:
+    """(blocks, resident rows) of :func:`k7_plan`: the solve launches K7
+    once per check, so the plan is worked out once per shape."""
+    plan = k7_plan(n, B, dtype, sms)
+    return plan["blocks"], plan["resident_rows"]
+
+
+def k6_smem_bytes(n: int, m: int, per_inst: int, resident: int,
+                  staged: bool = True) -> int:
+    """Shared memory of one K6 block (``csrc/full_solve_distinct_tiled.cu``:
+    ``k6_smem_floats``): ``resident`` rows of ``Qd_hat``; y, p, yn, y at the
+    check and Fd; t, U and Fp; when ``staged``, the exchanged rows a
+    reduction reads; five own-row vectors; the reductions."""
+    rows = -(-n // per_inst)
+    vectors = (7 if staged else 5) * _round4(n) + \
+        (4 if staged else 3) * _round4(m)
+    return 4 * (_round4(resident * n) + vectors + 5 * _round4(rows)
+                + K6_RANKS * K6_MAX_SUMS * (K67_THREADS // 32 + 1)
+                + K6_MAX_SUMS + 2 * (K6_RANKS + 4))
+
+
+def k6_plan(n: int, m: int, B: int, sms: int = H100_SMS) -> dict:
+    """K6's layout for ``B`` instances (``N=n``, ``M=m``) on a card of
+    ``sms`` SMs, as the kernel runs it: one block of :data:`K67_THREADS`
+    threads per SM, grouped into ``slots`` of ``blocks_per_instance``; a
+    slot solves instances one after the other (``waves`` of them).  Each
+    block keeps ``resident_rows`` of its ``rows_per_block`` rows of
+    ``Qd_hat`` in shared memory and reads the rest from global memory on
+    every pass (``streamed_rows`` per instance).  The plan takes the fewest
+    waves among the layouts whose streamed rows, over all slots, stay within
+    :data:`K6_L2_BUDGET` (one slot is always allowed), then the fewest
+    streamed rows: at N=2048, M=512, B=8 on an H100 two instances side by
+    side, each over 66 blocks with 13 of 32 rows streamed, ran 1.30x faster
+    than one over all 132 blocks with every row resident, three 1.24x, four
+    0.97x (``tools/probe_k6.py --slots``).  ``staged``: whether the reductions
+    copy the exchanged rows into shared memory (else they read them from
+    L2: the layout that leaves room for the largest N).  ``ranks``: the
+    row ranges whose order every instance sum keeps (the previous design's
+    16 blocks per instance, fewer below N = 16); ``exchange_floats``: half
+    of a slot's exchange buffer."""
+    if n < 1 or m < 1 or B < 1 or sms < 1:
+        raise ValueError(f"k6_plan needs n, m, B, sms >= 1, got {n}, {m}, "
+                         f"{B}, {sms}")
+    best = None
+    for staged in (True, False):
+        for slots in range(1, min(B, sms) + 1):
+            per_inst = min(n, sms // slots)   # every block owns a row
+            resident = -(-n // per_inst)
+            while resident >= 0 and k6_smem_bytes(
+                    n, m, per_inst, resident, staged) > SMEM_LIMIT_BYTES:
+                resident -= 1
+            if resident < 0:
+                continue
+            streamed = n - _resident_total(n, per_inst, resident)
+            if slots > 1 and slots * streamed * 4 * n > K6_L2_BUDGET:
+                continue
+            key = (-(-B // slots), streamed, slots)
+            if best is None or key < best[0]:
+                best = (key, slots, per_inst, resident)
+        if best is not None:
+            break
+    if best is None:
+        raise ValueError(
+            f"fused_full_solve_distinct_tiled: N={n}, M={m} need "
+            f"{k6_smem_bytes(n, m, min(n, sms), 0, False)} bytes of shared "
+            f"memory per block before any row of Qd_hat, more than "
+            f"{SMEM_LIMIT_BYTES}")
+    (waves, streamed, _), slots, per_inst, resident = best
+    ranks = min(K6_RANKS, 1 << (n.bit_length() - 1))
+    return dict(n=n, m=m, batch=B, blocks=slots * per_inst, slots=slots,
+                blocks_per_instance=per_inst, threads=K67_THREADS,
+                rows_per_block=-(-n // per_inst), resident_rows=resident,
+                streamed_rows=streamed, staged=staged,
+                smem_bytes=k6_smem_bytes(n, m, per_inst, resident, staged),
+                waves=waves, ranks=ranks,
+                exchange_floats=_round4(max(2 * n + m, ranks * m)))
 
 def distinct_streamed_matrix(Qd: torch.Tensor, theta: torch.Tensor,
                              dtype: str = "float32"):
@@ -111,7 +253,7 @@ def distinct_streamed_iterations(Q, theta, Fdn, Fdp, Y, num_iters: int,
     :func:`distinct_streamed_matrix`) with ``theta (B, N)``; ``Fdn``/
     ``Fdp`` ``(N, B)`` or shared.  Returns a new tensor; semantically
     :func:`distinct_streamed_iterations_reference` up to float32 summation
-    order.  One call is one kernel launch per update."""
+    order.  One call is one cooperative launch (:func:`k7_plan`)."""
     if not _on_cuda(Y, "Y"):
         return distinct_streamed_iterations_reference(Q, theta, Fdn, Fdp, Y,
                                                       num_iters, den_eps)
@@ -138,11 +280,13 @@ def distinct_streamed_iterations(Q, theta, Fdn, Fdp, Y, num_iters: int,
         return y.T.clone()
     out = torch.empty_like(y)
     tmp = torch.empty_like(y) if num_iters > 1 else out
+    blocks, resident = _k7_launch(N, B, mode, _sm_count(dev))
     lib = build.load_library()
     code = lib.pqp_iterations_distinct_tiled(
         q.data_ptr(), int(mode == "bfloat16"), th.data_ptr(), fdn.data_ptr(),
         fdp.data_ptr(), y.data_ptr(), out.data_ptr(), tmp.data_ptr(), N, B,
-        int(num_iters), float(den_eps), build.stream_handle(dev))
+        int(num_iters), float(den_eps), blocks, resident,
+        build.stream_handle(dev))
     build.check(code, "distinct_streamed_iterations")
     distinct_streamed_iterations.launches[mode] += 1
     return out.T
@@ -329,15 +473,21 @@ def fused_full_solve_distinct_tiled(Qd, theta, Gp, Qp, Qp_inv, Fp, Fd, Fdp,
     state = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return y.T, u.T, iters, state
+    plan = k6_plan(N, M, B, _sm_count(dev))
+    xch = torch.empty(plan["slots"] * 2 * plan["exchange_floats"], **f32)
+    arrive = torch.zeros(plan["slots"], dtype=torch.int32, device=dev)
     lib = build.load_library()
     code = lib.full_solve_distinct_tiled_f32(
         aligned(Qh).data_ptr(), th.data_ptr(), gp.data_ptr(), gp_stride,
         qp.data_ptr(), qpi.data_ptr(), qp_stride,
         *[t.data_ptr() for t in panels], y.data_ptr(), u.data_ptr(),
-        iters.data_ptr(), state.data_ptr(), N, M, B, int(max_iters),
-        int(check_every), int(bool(accel)), float(eaj), float(erj),
-        int(bool(strict)), float(den_eps), int(bool(gap_comp)),
-        build.stream_handle(dev))
+        iters.data_ptr(), state.data_ptr(), xch.data_ptr(),
+        arrive.data_ptr(), N, M, B, int(max_iters), int(check_every),
+        int(bool(accel)), float(eaj), float(erj), int(bool(strict)),
+        float(den_eps), int(bool(gap_comp)), plan["blocks_per_instance"],
+        plan["slots"], plan["resident_rows"], int(plan["staged"]),
+        plan["ranks"],
+        plan["exchange_floats"], build.stream_handle(dev))
     build.check(code, "fused_full_solve_distinct_tiled")
     fused_full_solve_distinct_tiled.launches += 1
     return y.T, u.T, iters, state

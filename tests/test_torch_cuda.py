@@ -635,6 +635,10 @@ K6_CASES = {
     "accel_n200": (STREAMED_CFG, 200, 50, 3),
     "ragged_n203_m51": (STREAMED_CFG, 203, 51, 3),
     "accel_n1024": (STREAMED_CFG, 1024, 256, 3),
+    # the path's shape: one instance spans more blocks than a cluster
+    # holds, two side by side (B=2) and one over every SM (B=1)
+    "n2048_m512_past_a_cluster": (STREAMED_CFG, 2048, 512, 2),
+    "n2048_m512_b1_spans_the_card": (STREAMED_CFG, 2048, 512, 1),
 }
 
 
@@ -656,12 +660,14 @@ def test_k6_kernel_matches_plain(dev, case):
     assert all(bool((a == b).all()) for a, b in zip(again, out))
 
 
-@pytest.mark.parametrize("N", [200, 203, 1024])
+@pytest.mark.parametrize("N", [200, 203, 1024, 2048])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k7_kernel_matches_plain(dev, N, dtype):
-    _, dual = _distinct(dev, N, N // 4, 3, gaussian=True,
+    # N = 2048 is the path's shape (B = 8): rows spill past shared memory
+    B = 8 if N == 2048 else 3
+    _, dual = _distinct(dev, N, N // 4, B, gaussian=True,
                         materialize=False)
-    Y = torch.as_tensor(np.random.default_rng(1).uniform(0.5, 2.0, (N, 3))
+    Y = torch.as_tensor(np.random.default_rng(1).uniform(0.5, 2.0, (N, B))
                         .astype(np.float32), device=dev)
     Q, th = distinct_tiled_kernel.distinct_streamed_matrix(dual.Qd,
                                                            dual.theta, dtype)

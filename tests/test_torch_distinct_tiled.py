@@ -144,6 +144,79 @@ def test_k6_value_errors():
             tp, dataclasses.replace(td, Qd=td.Qd[0]))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,B", [(2048, 8), (200, 3), (203, 5), (4096, 1),
+                                 (400, 1024), (58112, 2)])
+def test_k7_plan_fits_and_covers_every_row(n, B, dtype):
+    plan = distinct_tiled_kernel.k7_plan(n, B, dtype)
+    size = 2 if dtype == "bfloat16" else 4
+    assert plan["smem_bytes"] <= distinct_tiled_kernel.SMEM_LIMIT_BYTES
+    assert 0 <= plan["resident_rows"] <= plan["rows_per_block"]
+    assert plan["blocks"] * plan["rows_per_block"] >= B * n
+    assert plan["matrix_bytes"] == B * n * n * size
+    assert plan["resident_bytes"] + plan["l2_remainder_bytes"] \
+        == plan["matrix_bytes"]
+    # every row of a block fits, or shared memory is full
+    spare = distinct_tiled_kernel.SMEM_LIMIT_BYTES - plan["smem_bytes"]
+    assert plan["resident_rows"] == plan["rows_per_block"] \
+        or spare < n * size
+
+
+def test_k7_plan_at_the_path_shape():
+    # bench_mixed.py --distinct: B = 8, N = 2048 on 132 SMs; 125 rows a
+    # block, 55 of them resident in bf16 (44% of the 67 MB), 27 in f32
+    bf, f32 = (distinct_tiled_kernel.k7_plan(2048, 8, d)
+               for d in ("bfloat16", "float32"))
+    assert (bf["blocks"], bf["rows_per_block"], bf["resident_rows"]) \
+        == (132, 125, 55)
+    assert bf["l2_remainder_bytes"] == 37371904
+    assert f32["resident_rows"] == 27 and f32["l2_remainder_bytes"] > 50e6
+    assert bf["vector_rows"] and f32["vector_rows"]
+
+
+@pytest.mark.parametrize("n,m,B", [(2048, 512, 8), (2048, 512, 2),
+                                   (200, 50, 3), (203, 51, 3),
+                                   (1024, 256, 3), (400, 100, 1024),
+                                   (8192, 2048, 2), (5, 3, 2)])
+def test_k6_plan_fits_and_covers_every_row(n, m, B):
+    plan = distinct_tiled_kernel.k6_plan(n, m, B)
+    P = plan["blocks_per_instance"]
+    assert plan["smem_bytes"] <= distinct_tiled_kernel.SMEM_LIMIT_BYTES
+    assert plan["blocks"] == plan["slots"] * P <= 132
+    assert plan["slots"] <= B and plan["waves"] * plan["slots"] >= B
+    assert plan["rows_per_block"] == -(-n // P)
+    # resident rows and the streamed rest cover every row once
+    base, rem = divmod(n, P)
+    kept = sum(min(base + (k < rem), plan["resident_rows"])
+               for k in range(P))
+    assert kept + plan["streamed_rows"] == n
+    assert plan["ranks"] <= min(16, n)
+    assert plan["exchange_floats"] >= max(2 * n + m, plan["ranks"] * m)
+
+
+def test_k6_plan_at_the_path_shape_and_grouped():
+    # the path's shape: two instances side by side, each over 66 blocks
+    # with 19 of its 32 rows a block resident; the 2 x 794 streamed rows
+    # (13 MB) within the L2 budget, three instances' (30 MB) past it
+    path = distinct_tiled_kernel.k6_plan(2048, 512, 8)
+    assert (path["slots"], path["blocks_per_instance"], path["waves"]) \
+        == (2, 66, 4)
+    assert (path["rows_per_block"], path["resident_rows"]) == (32, 19)
+    assert path["streamed_rows"] == 794 and path["ranks"] == 16
+    assert 2 * path["streamed_rows"] * 4 * 2048 \
+        <= distinct_tiled_kernel.K6_L2_BUDGET
+    # every row resident when the card holds them: one wave of three
+    assert distinct_tiled_kernel.k6_plan(1024, 256, 3)["streamed_rows"] == 0
+    # small N, large B: many instances side by side, each on a few blocks
+    small = distinct_tiled_kernel.k6_plan(400, 100, 1024)
+    assert small["slots"] == 64 and small["blocks_per_instance"] == 2
+    assert small["waves"] == 16
+    assert path["staged"] and small["staged"]
+    # past the staged layout: the reductions read their rows from L2
+    big = distinct_tiled_kernel.k6_plan(8192, 2048, 2)
+    assert not big["staged"] and big["streamed_rows"] > 0
+
+
 def _k7_case():
     """tests/test_distinct_tiled_kernel.py's update case: B=3, N=200."""
     rng = np.random.default_rng(0)
