@@ -9,12 +9,16 @@ at full size and times them:
 
 * the small-N path (kernels K1, K2): the batched condensed-MPC solve
   through ``solve_auto`` and ``solve_batched``, and the receding-horizon
-  controller.  The workload is the reference example's shape built in the
-  repo: the double integrator condensed at horizon 7 (M = 7 inputs, N = 28
-  dual constraints), 2^22 initial states x0 ~ N(0, 0.5^2) from a NumPy seed;
+  controller.  The workload is the example benchmark's
+  (``pqp_for_mpc_tpu_torch.bench.example_workload``: the reference
+  example's shape built in the repo, the double integrator condensed at
+  horizon 7, M = 7 inputs, N = 28 dual constraints), 2^22 initial states
+  x0 ~ N(0, 0.5^2) from a NumPy seed, under its ``EXAMPLE_CFG``;
 * the streamed large-N path (kernels K3, K4): ``solve_auto`` routing to
   ``solve_mixed`` (K3 bf16 bulk phase, K3 f32 refine), ``solve_fused_tiled``
-  (K4) and the plain ``solve_batched``, on the JAX package's streamed
+  (K4), ``solve_batched(use_pallas=True)`` (its updates on K3 f32, one
+  launch per check) and the plain ``solve_batched``, on the JAX package's
+  streamed
   workload (N = 4096, M = 1024, B = 128, built from seed 0 as
   ``benchmarks/bench_tiled_solve.py`` builds it) under its ``--accel``
   configuration; and the H = 64 closed loop (N = 256, warm B = 1), which
@@ -39,23 +43,28 @@ at full size and times them:
 * the command line, as subprocesses of ``python -m pqp_for_mpc_tpu_torch``:
   ``generate``, ``solve-file`` (engines auto, fused and mixed; the auto
   line held against the same command on the CPU), ``bench`` (riding K2),
-  ``rollout --jit`` and ``serve``.
+  ``bench-example`` (the North-star line, held to the K1 route's rate
+  within 10%), ``rollout --jit`` and ``serve``.
 
 Each kernel is held against its plain version at the shapes its path gives
 it.  The ``launches`` of the kernel table are those of ONE call of each
 path's route, counted from 0.  K5's cluster plan (``k5_plan`` and the
-card's pick), K3's bf16 tile plans, K4's tile plan (``k4_plan``), K2's
-launch plan (``k2_plan``) and the K1/K8 engine's (``k1_plan`` beside the
-card's ``card_plan``) are printed; K3 bf16 is held at the streamed
-workload's shape and at the H=64 loop's single lane, K5 with its rows
+card's pick), K3's tile plans in both modes, K4's tile plan
+(``k4_plan``), K2's launch plan (``k2_plan``) and the K1/K8 engine's
+(``k1_plan`` beside the card's ``card_plan``) are printed; K3 is held at
+the streamed workload's shape and at the H=64 loop's single lane in both
+modes, its float32 mode also at N = 203, B = 5 and at the streamed shape
+with its other lane width (64 or 128, the same bits), K5 with its rows
 resident (N = 400) and streamed (N = 1,024), K1, K2 and K8 at both of
 their batches and K4 at the streamed workload, each also against its own
 relaunch, bit for bit; K8 also gives K1's bits on each of its cases,
 and on the accelerated H=16 case, since it sums in K1's order, it is held
 to its card test's bars (``accel_h16_parity``).  The times of the kernels
-redesigned for Hopper (K5, K3 bf16, K4, K2, K1, K8, K6, K7 bf16) under their previous
-designs are printed on a line of their own (``earlier_times``), quoted
-from PERF.md, not measured here.  K7's row is its bf16 mode, the one its
+redesigned for Hopper (all of them) under their previous designs are
+printed on a line of their own (``earlier_times``), quoted from PERF.md,
+not measured here.  K3 float32's row carries, beside the mixed route's
+launches, those of ``solve_batched(use_pallas=True)``
+(``use_pallas_launches``).  K7's row is its bf16 mode, the one its
 path runs, timed in two windows in turns
 with its plain version (``ms_windows``); its float32 mode is held and
 timed too, and sits in the row as ``float32_mode``.  The resident
@@ -145,36 +154,11 @@ SMEM_BPS = 132 * 128 * 1.98e9
 #: never in the kernel table
 EARLIER_MS = {"k5": 4589.51, "k3_bfloat16": 6.925, "k4": 2088.37,
               "k2": 7.762, "k1": 602.13, "k8": 478.80, "k6": 347.38,
-              "k7_bfloat16": 0.5052}
+              "k7_bfloat16": 0.5052, "k3_float32": 6.015}
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def mpc_spec(horizon: int = 7, r: float = 2.5):
-    """The double integrator at ``horizon`` (M = horizon, N = 4 horizon),
-    |u| <= 1, |du| <= 0.5, reference ``r``: horizon 7 with r = 2.5 is the
-    main path's M=7/N=28 workload, horizon 16 with r = 0 the closed loop."""
-    from pqp_for_mpc_tpu_torch.models import MPCSpec, double_integrator
-    return MPCSpec(double_integrator(), horizon=horizon, Qy=np.eye(1),
-                   R=0.05 * np.eye(1), r=np.array([r]), u_min=-np.ones(1),
-                   u_max=np.ones(1), du_max=0.5 * np.ones(1))
-
-
-def workload(B: int, device, seed: int = 0, horizon: int = 7,
-             r: float = 2.5):
-    """A batch of ``mpc_spec(horizon, r)`` from x0 ~ N(0, 0.5^2) drawn
-    with NumPy: (primal, dual)."""
-    from pqp_for_mpc_tpu_torch import dualize
-    from pqp_for_mpc_tpu_torch.models import condense
-    import torch
-    data = condense(mpc_spec(horizon, r), device=device)
-    rng = np.random.default_rng(seed)
-    x = torch.as_tensor(rng.normal(0.0, 0.5, (2, B)).astype(np.float32),
-                        device=device)
-    primal = data.assemble(x=x, Qp=data.qp())
-    return primal, dualize(primal)
 
 
 def streamed_workload(device, seed: int = 0):
@@ -474,6 +458,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import pqp_for_mpc_tpu_torch as pqp
+    from pqp_for_mpc_tpu_torch.bench import (EXAMPLE_CFG, example_spec,
+                                             example_workload)
     from pqp_for_mpc_tpu_torch.config import MPC_CONFIG
     from pqp_for_mpc_tpu_torch.models import MPCController
     from pqp_for_mpc_tpu_torch.ops import (build, kernels, packed_kernel,
@@ -482,11 +468,10 @@ def main() -> int:
     require("jax" not in sys.modules, "the port imported jax")
 
     dev = torch.device("cuda", 0)
-    # the slice's configuration: MPC_CONFIG's tolerances with the
-    # reference's forcing-scale feasibility test (which the whole-solve
-    # kernel certifies in-kernel) and no acceleration
-    smoke_cfg = dataclasses.replace(MPC_CONFIG, feas_from_dual_gradient=False,
-                                    accel_every=0, max_iters=5000)
+    # the main path's configuration (the example benchmark's): MPC_CONFIG's
+    # tolerances with the reference's forcing-scale feasibility test (which
+    # the whole-solve kernel certifies in-kernel) and no acceleration
+    smoke_cfg = EXAMPLE_CFG
 
     # -- phase 1: device and build ---------------------------------------
     smi = subprocess.run(
@@ -507,7 +492,7 @@ def main() -> int:
     require(not tf32, "torch.backends.cuda.matmul.allow_tf32 is on")
 
     # -- phase 2: K2 against its plain version ---------------------------
-    primal, dual = workload(B_CMP, dev)
+    primal, dual = example_workload(B_CMP, dev)
     N = dual.n_con
     rng = np.random.default_rng(1)
     Y = torch.as_tensor(rng.uniform(0.01, 10.0, (N, B_CMP))
@@ -558,14 +543,16 @@ def main() -> int:
     accel_cfg = dataclasses.replace(smoke_cfg, check_every=4, accel_every=4)
     mpc_cfg = dataclasses.replace(MPC_CONFIG, feas_from_dual_gradient=False)
     k8_cases = [
-        ("n28", lambda: workload(B_CMP, dev), smoke_cfg, False),
-        ("n28_accel", lambda: workload(B_CMP, dev), accel_cfg, False),
-        ("n28_per_lane_kp", lambda: workload(B_CMP, dev), dataclasses.replace(
-            smoke_cfg, gap_from_complementarity=False), True),
-        ("n64", lambda: workload(B_N64, dev, horizon=16, r=0.0), smoke_cfg,
+        ("n28", lambda: example_workload(B_CMP, dev), smoke_cfg, False),
+        ("n28_accel", lambda: example_workload(B_CMP, dev), accel_cfg,
          False),
-        ("n64_accel", lambda: workload(B_N64, dev, horizon=16, r=0.0),
-         mpc_cfg, False),
+        ("n28_per_lane_kp", lambda: example_workload(B_CMP, dev),
+         dataclasses.replace(smoke_cfg, gap_from_complementarity=False),
+         True),
+        ("n64", lambda: example_workload(B_N64, dev, horizon=16, r=0.0),
+         smoke_cfg, False),
+        ("n64_accel", lambda: example_workload(B_N64, dev, horizon=16,
+                                               r=0.0), mpc_cfg, False),
     ]
     errs["k8"] = []
     for name, make, cfg, per_lane_kp in k8_cases:
@@ -603,7 +590,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 4: the main path at full size -----------------------------
-    primal, dual = workload(B_MAIN, dev)
+    primal, dual = example_workload(B_MAIN, dev)
     route = pqp.route_solve(dual.n_con, B_MAIN, False, smoke_cfg,
                             m_dim=primal.n_var, platform="cuda")
     require(route == "fused", f"cold B=2^22 routed to {route!r}")
@@ -673,7 +660,7 @@ def main() -> int:
     del res8, res1
 
     # -- phase 5: the closed loop ----------------------------------------
-    spec = mpc_spec(16, 0.0)
+    spec = example_spec(16, 0.0)
     ctrl = MPCController(spec, device=dev)
     out = ctrl.rollout([2.0, 0.0], 20)
     loop_ok = (bool(out["converged"].all()) and int(out["iters"].max()) < 2000
@@ -700,7 +687,7 @@ def main() -> int:
     #    timed against the host loop (rollout) on the same spec ---------
     loop = {}
     for name in ("rollout_jit", "rollout"):
-        ctrl = MPCController(mpc_spec(16, 0.0), device=dev)
+        ctrl = MPCController(example_spec(16, 0.0), device=dev)
         getattr(ctrl, name)([2.0, 0.0], 5)            # warm-up
         ctrl.reset()
         torch.cuda.synchronize()
@@ -824,34 +811,66 @@ def main() -> int:
     streams = {mode: tiled_kernel.streamed_matrix(ld.Qd, ld.theta, mode)
                for mode in ("float32", "bfloat16")}
     k3_kw = dict(num_iters=big_cfg.check_every, den_eps=big_cfg.den_eps)
-    # the bf16 mode's tile plans: the streamed workload and the H=64 loop
+    # the tile plans: the streamed workload and the H=64 loop (f32 also a
+    # ragged shape)
     emit("k3_bf16_plan", streamed=tiled_kernel.k3_bf16_plan(N_BIG, B_BIG),
          h64_loop=tiled_kernel.k3_bf16_plan(256, 1))
+    emit("k3_f32_plan", streamed=tiled_kernel.k3_f32_plan(N_BIG, B_BIG),
+         h64_loop=tiled_kernel.k3_f32_plan(256, 1),
+         ragged=tiled_kernel.k3_f32_plan(203, 5))
     k3 = tiled_kernel.streamed_pqp_iterations
     k3_plain = tiled_kernel.streamed_pqp_iterations_reference
-    # the H=64 loop's geometry (N = 256) at its single lane: the bf16 mode's
-    # small-tile instantiation, staged entry by entry
-    _, d64 = workload(1, dev, horizon=64, r=0.0)
+    # the H=64 loop's geometry (N = 256) at its single lane (both modes'
+    # small tiles, staged entry by entry), a ragged corner of the streamed
+    # workload (N = 203, B = 5) in f32, and the streamed workload's shape in
+    # f32 also at the other of 64 and 128 lanes
+    _, d64 = example_workload(1, dev, horizon=64, r=0.0)
     Y64 = torch.as_tensor(np.random.default_rng(6).uniform(
         0.5, 2.0, (d64.n_con, 1)).astype(np.float32), device=dev)
-    k3_cases = [(mode, N_BIG, B_BIG, (Q, th, ld.Fdn, ld.Fdp, Y3))
+    k3_cases = [(mode, N_BIG, B_BIG, None, (Q, th, ld.Fdn, ld.Fdp, Y3))
                 for mode, (Q, th) in streams.items()]
-    k3_cases.append(("bfloat16", d64.n_con, 1, (
-        *tiled_kernel.streamed_matrix(d64.Qd, d64.theta, "bfloat16"),
-        d64.Fdn, d64.Fdp, Y64)))
-    for mode, n, batch, k3_args in k3_cases:
-        got = k3(*k3_args, **k3_kw)
+    shipped_lanes = tiled_kernel.k3_f32_plan(N_BIG, B_BIG)["tile_lanes"]
+    other = 64 if shipped_lanes == 128 else 128
+    k3_cases.append(("float32", N_BIG, B_BIG, other,
+                     (*streams["float32"], ld.Fdn, ld.Fdp, Y3)))
+    for mode in ("float32", "bfloat16"):
+        k3_cases.append((mode, d64.n_con, 1, None, (
+            *tiled_kernel.streamed_matrix(d64.Qd, d64.theta, mode),
+            d64.Fdn, d64.Fdp, Y64)))
+    k3_cases.append(("float32", 203, 5, None, (
+        *tiled_kernel.streamed_matrix(ld.Qd[:203, :203].contiguous(),
+                                      ld.theta[:203], "float32"),
+        ld.Fdn[:203, :5].contiguous(), ld.Fdp[:203, :5].contiguous(),
+        Y3[:203, :5].contiguous())))
+    shipped_plan = tiled_kernel.k3_f32_plan
+    k3_f32_big = {}
+    for mode, n, batch, lanes, k3_args in k3_cases:
+        if lanes:
+            tiled_kernel.k3_f32_plan = lambda n_, b_, _l=lanes: dict(
+                shipped_plan(n_, b_), tile_lanes=_l)
+        try:
+            plan = (tiled_kernel.k3_f32_plan(n, batch)["tile_lanes"]
+                    if mode == "float32" else None)
+            got = k3(*k3_args, **k3_kw)
+            again = k3(*k3_args, **k3_kw)
+        finally:
+            tiled_kernel.k3_f32_plan = shipped_plan
         cmp = k3_parity(got, k3_plain(*k3_args, **k3_kw),
                         rtol=1e-5 if mode == "float32" else 1e-3)
-        cmp["repeats_bits"] = bool((k3(*k3_args, **k3_kw) == got).all())
-        emit("k3_vs_plain", mode=mode, n=n, batch=batch,
+        cmp["repeats_bits"] = bits_equal([again], [got])
+        if mode == "float32" and n == N_BIG:
+            k3_f32_big[plan] = got
+        emit("k3_vs_plain", mode=mode, n=n, batch=batch, tile_lanes=plan,
              num_iters=big_cfg.check_every, **cmp)
         require(cmp["ok"], f"K3 ({mode}) disagrees with its plain version "
                            f"at N={n}, B={batch}: {cmp}")
         require(cmp["repeats_bits"],
                 f"K3 ({mode}) at N={n}, B={batch} did not repeat its bits")
         errs.setdefault("k3_" + mode, []).append(cmp["max_abs_err"])
-    del d64, Y64, k3_cases
+    # every entry is one FMA chain in ascending k at any lane width
+    require(bits_equal(*([t] for t in k3_f32_big.values())),
+            "K3 (float32) at 64 and 128 lanes gave different bits")
+    del d64, Y64, k3_cases, k3_f32_big
     t_args, t_kw = tiled_solve_kernel.tiled_inputs(lp, ld, None, big_cfg)
     k4_plain_t0 = time.perf_counter()
     out_p = tiled_solve_kernel.fused_full_solve_tiled_reference(*t_args,
@@ -874,41 +893,63 @@ def main() -> int:
                             platform="cuda")
     require(route == "mixed", f"N={N_BIG} routed to {route!r}")
     k3_counts = tiled_kernel.streamed_pqp_iterations.launches
-    k3_counts["float32"] = k3_counts["bfloat16"] = 0
-    tiled_solve_kernel.fused_full_solve_tiled.launches = 0
+    k4_kernel = tiled_solve_kernel.fused_full_solve_tiled
     big_runs = {
         "mixed_route": (lambda: pqp.solve_auto(lp, ld, cfg=big_cfg),
                         "mixed"),
         "k4_route": (lambda: tiled_solve_kernel.solve_fused_tiled(
             lp, ld, cfg=big_cfg), "f32"),
+        # the plain loop with its updates on K3's float32 mode
+        "use_pallas_k3": (lambda: pqp.solve_batched(
+            lp, ld, cfg=dataclasses.replace(big_cfg, use_pallas=True)),
+                          "f32"),
         "plain": (lambda: pqp.solve_batched(lp, ld, cfg=big_cfg), "f32"),
     }
-    big_rows = {}
+    big_rows, route_launches = {}, {}
     for name, (fn, record) in big_runs.items():
+        # every count set to 0 just before the route's run, read just after
+        k3_counts["float32"] = k3_counts["bfloat16"] = 0
+        k4_kernel.launches = 0
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
+        route_launches[name] = dict(k3_float32=k3_counts["float32"],
+                                    k3_bfloat16=k3_counts["bfloat16"],
+                                    k4=k4_kernel.launches)
         conv = float(res.converged.float().mean())
         big_rows[name] = dict(
             converged_frac=conv, iters_mean=float(res.iters.float().mean()),
             iters_max=int(res.iters.max()),
             jax_record_iters_mean=JAX_ITERS[record],
-            seconds_first_run=time.perf_counter() - t0)
+            seconds_first_run=time.perf_counter() - t0,
+            launches=route_launches[name])
         require(conv >= 0.99, f"{name}: only {conv:.4f} converged")
         del res
-    big_launches = {"k3_float32": k3_counts["float32"],
-                    "k3_bfloat16": k3_counts["bfloat16"],
-                    "k4": tiled_solve_kernel.fused_full_solve_tiled.launches}
+    big_launches = {
+        "k3_float32": route_launches["mixed_route"]["k3_float32"],
+        "k3_bfloat16": route_launches["mixed_route"]["k3_bfloat16"],
+        "k4": route_launches["k4_route"]["k4"],
+        "k3_float32_use_pallas": route_launches["use_pallas_k3"][
+            "k3_float32"]}
     emit("large_n_launches", **big_launches)
     require(big_launches["k3_bfloat16"] > 0,
             "solve_auto (mixed) did not launch K3 in bf16 mode")
     require(big_launches["k3_float32"] > 0,
             "solve_auto (mixed) did not launch K3 in f32 mode")
     require(big_launches["k4"] > 0, "solve_fused_tiled did not launch K4")
+    require(big_launches["k3_float32_use_pallas"] > 0,
+            "solve_batched(use_pallas=True) did not launch K3 in f32 mode")
     for name, (fn, _) in big_runs.items():
         ms = cuda_ms(fn, reps=1, warmup=False)
+        big_rows[name]["seconds_per_batch"] = ms / 1e3
         emit("large_n_path", engine=name, n=N_BIG, m=M_BIG, batch=B_BIG,
-             seconds_per_batch=ms / 1e3, nvidia_smi=smi, **big_rows[name])
+             nvidia_smi=smi, **big_rows[name])
+    # K3's float32 updates are the plain update's up to summation order
+    emit("large_n_use_pallas_iters",
+         iters_mean=big_rows["use_pallas_k3"]["iters_mean"],
+         plain_iters_mean=big_rows["plain"]["iters_mean"],
+         iters_equal_plain=big_rows["use_pallas_k3"]["iters_mean"]
+         == big_rows["plain"]["iters_mean"])
 
     # -- phase 8: the streamed kernels timed beside their plain versions --
     big_times = {}
@@ -961,7 +1002,7 @@ def main() -> int:
     # N = 256 > 128: the router sends the warm single-lane steps to "mixed";
     # the same loop through the plain route, for the comparison
     import pqp_for_mpc_tpu_torch.models.mpc as mpc_module
-    spec64 = mpc_spec(64, 0.0)
+    spec64 = example_spec(64, 0.0)
     route64 = pqp.route_solve(256, 1, False, MPC_CONFIG, m_dim=64,
                               platform="cuda", warm=True)
     require(route64 == "mixed", f"H=64 warm step routed to {route64!r}")
@@ -1289,6 +1330,23 @@ def main() -> int:
         require(bench.get("kernel") == "cuda"
                 and bench.get("platform") == "cuda",
                 f"cli bench did not ride K2: {rc} {out_b} {err}")
+        # the North-star line: the example benchmark at B = 2^22, held to
+        # what the K1 route's row above implies
+        rc, out_x, err = run_cli("bench-example", "--repeats", 3)
+        example = json.loads(out_x.strip().splitlines()[-1]) if rc == 0 \
+            else {}
+        k1_rate = B_MAIN / main_rows["k1_route"]["seconds_per_batch"]
+        example_vs_k1 = example.get("value", 0.0) / k1_rate
+        emit("bench_example", line=example, k1_route_solves_per_s=k1_rate,
+             ratio_to_k1_route=example_vs_k1, nvidia_smi=smi)
+        require(example.get("metric") == "example_qp_solves_per_s"
+                and example.get("converged_frac", 0.0) >= 0.99
+                and example.get("engine") == "fused"
+                and example.get("batch") == B_MAIN,
+                f"cli bench-example: {rc} {out_x} {err}")
+        require(abs(example_vs_k1 - 1.0) <= 0.1,
+                f"bench-example's rate is {example_vs_k1:.3f} of the K1 "
+                "route's")
         rc, out_r, err = run_cli("rollout", "--jit", "--steps", LOOP_STEPS)
         roll = json.loads(out_r.strip().splitlines()[-1]) if rc == 0 else {}
         require(rc == 0 and roll.get("steps") == LOOP_STEPS,
@@ -1344,6 +1402,9 @@ def main() -> int:
               **bounds[key]}
              for key, name, src, tpu, n, err, ms, plain_ms in rows]
     for row, (key, *_rest) in zip(table, rows):
+        if key == "k3_float32":   # its own route, beside the mixed route's
+            row["use_pallas_launches"] = big_launches[
+                "k3_float32_use_pallas"]
         if key == "k7_bfloat16":
             row["ms_windows"] = k7_windows["bfloat16"]["kernel_ms"]
         if key in ("k1", "k8"):   # the C entry each launches the engine by

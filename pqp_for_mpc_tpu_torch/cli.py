@@ -14,14 +14,17 @@ flags, defaults, printed lines and JSON keys:
   multiplicative updates, no convergence checks (the reference's
   ``while(h<NUM_ITER)`` timing loops); on CUDA it rides the update kernel
   K2 where N fits it.
+* ``bench-example``    — certified example-sized solves/s, the North-star
+  metric (:mod:`pqp_for_mpc_tpu_torch.bench`, the twin of ``bench.py``).
 * ``rollout``          — receding-horizon closed loop on a model-zoo plant
   (condensed backend; ``--jit`` runs ``MPCController.rollout_jit``).
 * ``serve``            — the JSON-lines solver daemon.
 
-One addition: ``--device`` (default ``cuda``; without a card that raises,
-``problem.resolve_device``).  Not ported yet, each exiting with code 1 and
-naming its ROADMAP item: ``bench-example`` (it loads the JAX package's
-``bench.py``; queue 1, item 3), ``estimate`` and ``rollout --robust-w /
+Additions: ``--device`` (default ``cuda``; without a card that raises,
+``problem.resolve_device``); ``bench-example`` takes the flags of the
+port's ``bench`` (``--device``, ``--batch``, ``--repeats``, ``--seed``)
+where the JAX one takes none.  Not ported yet, each exiting with code 1
+and naming its ROADMAP item: ``estimate`` and ``rollout --robust-w /
 --offset-free / --backend stagewise`` (the stage-wise family, item 10).
 """
 
@@ -37,8 +40,6 @@ import torch
 
 #: what the unported subcommands and flags print before exiting with 1
 _NOT_PORTED = {
-    "bench-example": "bench-example loads the JAX package's bench.py; its "
-                     "twin is not ported yet (ROADMAP queue 1, item 3)",
     "estimate": "estimate needs the state estimators, not ported yet "
                 "(ROADMAP queue 1, item 10)",
     "stagewise": "the stage-wise backend is not ported yet (ROADMAP queue "
@@ -238,7 +239,8 @@ def cmd_bench(args) -> int:
 
 
 def cmd_bench_example(args) -> int:
-    return _not_ported("bench-example")
+    from pqp_for_mpc_tpu_torch.bench import run
+    return run(args)
 
 
 def cmd_estimate(args) -> int:
@@ -449,6 +451,7 @@ def cmd_serve(args) -> int:
 
 
 def main(argv=None) -> int:
+    from pqp_for_mpc_tpu_torch import bench
     ap = argparse.ArgumentParser(
         prog="pqp_for_mpc_tpu_torch",
         description="PQP engine for linear MPC (PyTorch and CUDA)")
@@ -495,7 +498,8 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("bench-example", help="full-convergence solves/s "
-                                             "on example/ (not ported)")
+                                             "on an example-sized batch")
+    bench.add_arguments(p)
     p.set_defaults(fn=cmd_bench_example)
 
     p = sub.add_parser("rollout", help="receding-horizon closed loop")

@@ -1,4 +1,5 @@
-// The tile of K4 (full_solve_tiled.cu): one block of 256 threads computes a
+// The float32 tile of K4 (full_solve_tiled.cu) and of K3's float32 mode
+// (pqp_iterations_tiled.cu): one block of 256 threads computes a
 // BM x BN = 32 x (32, 64 or 128) tile of C = A X on the CUDA cores, A a
 // (rows x depth) row-major matrix or the transpose of one (Gp'), X a
 // batch-last panel (depth x B, element (k, b) at x[k * B + b]).
@@ -14,15 +15,16 @@
 // k-major, rows padded to 36) and X's BN lanes.  Rows, depth or lanes that
 // are not multiples of 4 stage entry by entry (4-byte cp.async); entries
 // past the edge are zero-filled.  The 16-byte copies need A and X to start
-// 16-byte aligned (ops/tiled_solve_kernel.py copies a matrix that does
-// not).  Thread t owns rows 4 (t / 32) + [0, 4)
-// and lanes (t % 32) BN/32 + [0, BN/32): a warp reads one float4 of A per
-// row and k-quad (the same address for the whole warp) and BN floats of X
-// per k, contiguous; 2 x 4 x BN/32 FMAs per k in SPLIT mode.
+// 16-byte aligned (the wrappers copy an operand that does not).
+//
+// Thread t owns rows 4 (t / 32) + [0, 4) and lanes (t % 32) BN/32 +
+// [0, BN/32): a warp reads one float4 of A per row and k-quad (the same
+// address for the whole warp) and BN floats of X per k, contiguous;
+// 2 x 4 x BN/32 FMAs per k in SPLIT mode.
 //
 // The sizes are the fastest measured on an H100 (PERF.md): 32-deep
 // slabs, 16-row tiles and 8 lanes per thread ran slower, 2- or 4-stage
-// rings within 0.5%.
+// rings within 0.5%; the k-quad loop unrolled 4 beat 2 by 1-3% (K3, K4).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,7 +57,7 @@ struct AccShape {
 };
 
 // The lanes of a tile for a batch of B: the narrowest of 32, 64, 128 that
-// holds B, else 128 (ops/tiled_solve_kernel.py: k4_plan).
+// holds B, else 128 (K4's; ops/tiled_kernel.py: fma_tile_lanes).
 __host__ __device__ inline int tile_lanes(int B) {
   return B <= 32 ? 32 : B <= 64 ? 64 : 128;
 }
@@ -185,7 +187,7 @@ __device__ __forceinline__ void products(Smem<BN>& sm, int r0, int b0,
     asm volatile("cp.async.commit_group;\n" ::);
     const int st = i % kStages;
     const float* sa = sm.a[st];
-#pragma unroll 2
+#pragma unroll 4
     for (int kq = 0; kq < BK; kq += 4) {
       // av[r][kk]: A(RT tr + r, kq + kk)
       float av[RT][4];
@@ -237,6 +239,35 @@ __device__ __forceinline__ void for_entries(int r0, int b0, int rows, int B,
       const int r = r0 + RT * tr + i, b = b0 + tl * (BN / LG) + j;
       if (r < rows && b < B) f(r, b, i, j);
     }
+}
+
+// The multiplicative update of a tile's entries from its split products,
+// den_acc = relu(Q) y and num_acc = relu(-Q) y (SPLIT mode on Qd_hat), the
+// epilogue of K3's float32 mode and of K4's update pass:
+//     num = (num_acc + theta_r y) + fdn,  den = den_acc + fdp,
+//     dst = (num / guard(den)) * y
+// for each entry inside (n, B).  fd_lane selects per-lane (n x B) or
+// shared (n) forcing panels; a lane for which frozen(b) holds keeps y.
+// theta_r y contracts into one FMA with num_acc, as in the previous
+// epilogues of both kernels, so each keeps its bits (PERF.md).
+template <int BN, class Frozen>
+__device__ __forceinline__ void update_epilogue(
+    const float (&den_acc)[RT][BN / LG], const float (&num_acc)[RT][BN / LG],
+    int r0, int b0, int n, int B, const float* theta, const float* fdn,
+    const float* fdp, bool fd_lane, const float* src, float* dst,
+    float den_eps, Frozen frozen) {
+  for_entries<BN>(r0, b0, n, B, [&](int r, int b, int i, int j) {
+    const long long e = (long long)r * B + b;
+    const long long f = fd_lane ? e : (long long)r;
+    const float y = src[e];
+    float out = y;
+    if (!frozen(b)) {
+      const float num = (num_acc[i][j] + theta[r] * y) + fdn[f];
+      const float den = den_acc[i][j] + fdp[f];
+      out = (num / guard_den(den, den_eps)) * y;
+    }
+    dst[e] = out;
+  });
 }
 
 }  // namespace fma

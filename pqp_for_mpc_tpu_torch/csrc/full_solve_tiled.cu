@@ -167,8 +167,7 @@ __device__ __noinline__ void product_tile(fma::Smem<BN>& sm, const Job j,
   });
 }
 
-// One update tile: num = relu(-Q) y + theta_r y_r + fdn,
-// den = relu(Q) y + fdp, y_new = (num / guard(den)) * y_r; lanes whose
+// One update tile (fma::update_epilogue, per-lane forcing); lanes whose
 // state is not 0 (certified or stalled) keep y_r.
 template <int BN>
 __device__ __noinline__ void update_tile(fma::Smem<BN>& sm, int r0, int b0,
@@ -181,17 +180,9 @@ __device__ __noinline__ void update_tile(fma::Smem<BN>& sm, int r0, int b0,
   float num_acc[fma::AccShape<BN>::d0][fma::AccShape<BN>::d1];
   fma::products<BN, false, true>(sm, r0, b0, n, n, B, qh, n, src, den_acc,
                                   num_acc);
-  fma::for_entries<BN>(r0, b0, n, B, [&](int r, int b, int t, int e) {
-    const long long i = (long long)r * B + b;
-    const float y = src[i];
-    float out = y;
-    if (state[b] == kActive) {
-      const float num = (num_acc[t][e] + theta[r] * y) + fdn[i];
-      const float den = den_acc[t][e] + fdp[i];
-      out = (num / guard_den(den, den_eps)) * y;
-    }
-    dst[i] = out;
-  });
+  fma::update_epilogue<BN>(den_acc, num_acc, r0, b0, n, B, theta, fdn, fdp,
+                           true, src, dst, den_eps,
+                           [&](int b) { return state[b] != kActive; });
 }
 
 // Per-lane partial sums over chunks of kChunk rows: unit (chunk c, 32

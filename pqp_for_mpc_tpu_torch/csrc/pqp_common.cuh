@@ -1,6 +1,6 @@
 // Helpers shared by the kernels (pqp_iterations.cu, lane_tile_solve.cuh
-// and, through tile_gemm.cuh, fma_tile.cuh and distinct_common.cuh, the
-// streamed and the distinct-geometry kernels).
+// and, through fma_tile.cuh and distinct_common.cuh, the streamed and the
+// distinct-geometry kernels).
 //
 // Layout conventions, as the Python wrappers pass them:
 //  * matrices are row-major float32 in device memory; a kernel stages them

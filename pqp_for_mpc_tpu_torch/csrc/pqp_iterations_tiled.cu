@@ -22,9 +22,14 @@
 // because a launch costs a few microseconds against one update, and the
 // kernel stays an ordinary grid of independent blocks.  The wrapper never
 // writes its input; the last update lands in y_out.
-//   float32 mode: a block computes a 32-row x 64-lane tile of num and den
-//   together on the CUDA cores (tile_gemm.cuh): each staged
-//   Q entry feeds both relu parts, each staged y entry 32 rows.
+//   float32 mode: a block of 256 threads computes a 32-row tile of num and
+//   den together on the CUDA cores, on K4's tile (fma_tile.cuh: a 3-stage
+//   cp.async ring of 64-deep slabs, the relu split of Q in registers) and
+//   K4's update epilogue (fma::update_epilogue).  Its lanes BN (32, 64 or
+//   128, as K4's: the narrowest that holds B) are the wrapper's
+//   (ops/tiled_kernel.py: k3_f32_plan); a thread owns 4 rows x BN/32
+//   lanes, K4's layout (123 KB of shared memory at 128 lanes, one block
+//   per SM).
 //   bfloat16 mode: the two products on the tensor cores.  Its arithmetic is
 //   exactly a bf16 MMA with float32 accumulation, mma.sync.m16n8k16: A is a
 //   16 x 16 tile of Q read from shared memory and split in registers into
@@ -48,7 +53,10 @@
 // the split matrix) against N^2 x 4 bytes (f32) or x 2 bytes (bf16) of
 // matrix: at N = 4096, B = 128, 8.6 GFLOP against 67 MB or 34 MB.  On the
 // CUDA cores (f32 mode) that is compute-bound — at least 0.13 ms at the
-// 67 TFLOP/s f32 peak.  On the tensor cores (bf16 mode) the product's own
+// 67 TFLOP/s f32 peak; the FMA tile issues ~42 instructions per 32 FMAs
+// with 8 warps per SM (each output entry one chain in k, so no depth
+// split) and runs an update in about 0.265 ms (tools/probe_k3.py, as K4's
+// update pass).  On the tensor cores (bf16 mode) the product's own
 // bound is 8.7 us at 989 TFLOP/s; the bf16 Q (33.5 MB) stays in the L2
 // across a call's updates, and with 32-row tiles every block also reads its
 // lane tile of the iterate over the whole depth, so the L2 -> shared-memory
@@ -64,21 +72,27 @@
 #include <cstdint>
 
 #include "pqp_common.cuh"
-#include "tile_gemm.cuh"
+#include "fma_tile.cuh"
 
 namespace pqp {
 
-__global__ void __launch_bounds__(tile::kThreads)
-tiled_update_kernel(const float* q, const float* theta, const float* fdn,
-                    const float* fdp, int fd_lane, const float* y_in,
-                    float* y_out, int n, int B, float den_eps) {
-  __shared__ __align__(16) tile::Smem sm;
-  const int r0 = blockIdx.y * tile::BM, b0 = blockIdx.x * tile::BL;
-  float den_acc[4][4], num_acc[4][4];
-  tile::products(sm, r0, b0, n, n, B, tile::RowMajor{q, n},
-                 tile::Panel{y_in, B}, den_acc, num_acc);
-  tile::update_epilogue(den_acc, num_acc, r0, b0, n, B, theta, fdn,
-                        fdp, fd_lane, y_in, y_out, den_eps);
+// One float32-mode update of a 32 x BN tile: y_in (16-byte aligned, as q)
+// to y_out.
+template <int BN>
+__global__ void __launch_bounds__(fma::kThreads, 1)
+f32_update_kernel(const float* q, const float* theta, const float* fdn,
+                  const float* fdp, int fd_lane, const float* y_in,
+                  float* y_out, int n, int B, float den_eps) {
+  using Acc = fma::AccShape<BN>;
+  extern __shared__ float4 smem4[];
+  fma::Smem<BN>& sm = *reinterpret_cast<fma::Smem<BN>*>(smem4);
+  const int r0 = blockIdx.y * fma::BM, b0 = blockIdx.x * BN;
+  float den_acc[Acc::d0][Acc::d1], num_acc[Acc::d0][Acc::d1];
+  fma::products<BN, false, true>(sm, r0, b0, n, n, B, q, n, y_in, den_acc,
+                                  num_acc);
+  fma::update_epilogue<BN>(den_acc, num_acc, r0, b0, n, B, theta, fdn, fdp,
+                           fd_lane != 0, y_in, y_out, den_eps,
+                           [](int) { return false; });
 }
 
 namespace tc {
@@ -228,7 +242,7 @@ tc_update_kernel(const __nv_bfloat16* q, const float* theta,
   }
   asm volatile("cp.async.wait_all;\n" ::);
 
-  // epilogue: the float32 mode's arithmetic (tile::update_epilogue with
+  // epilogue: the float32 mode's arithmetic (fma::update_epilogue with
   // theta on both sides), then the f32 iterate and its bf16 rounding
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -307,20 +321,26 @@ static cudaError_t launch_rows(int BN, const __nv_bfloat16* q,
 
 }  // namespace tc
 
+template <int BN>
 static cudaError_t launch_f32(const float* q, const float* theta,
                               const float* fdn, const float* fdp, int fd_lane,
                               const float* y, float* y_out, float* y_tmp,
                               int n, int B, int num_iters, float den_eps,
                               cudaStream_t stream) {
-  const dim3 grid((B + tile::BL - 1) / tile::BL,
-                  (n + tile::BM - 1) / tile::BM);
+  const auto kernel = f32_update_kernel<BN>;
+  const int smem = (int)sizeof(fma::Smem<BN>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + BN - 1) / BN, (n + fma::BM - 1) / fma::BM);
   const float* src = y;
   for (int t = 0; t < num_iters; ++t) {
     // the buffer of update t is chosen so that the last one is y_out
     float* dst = ((num_iters - 1 - t) % 2 == 0) ? y_out : y_tmp;
-    tiled_update_kernel<<<grid, tile::kThreads, 0, stream>>>(
-        q, theta, fdn, fdp, fd_lane, src, dst, n, B, den_eps);
-    const cudaError_t err = cudaGetLastError();
+    kernel<<<grid, fma::kThreads, smem, stream>>>(q, theta, fdn, fdp,
+                                                  fd_lane, src, dst, n, B,
+                                                  den_eps);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     src = dst;
   }
@@ -332,8 +352,10 @@ static cudaError_t launch_f32(const float* q, const float* theta,
 // q: (n, n) float32 (q_bf16 = 0) or bfloat16 (q_bf16 = 1); theta (n);
 // fdn/fdp (n, B) per lane (fd_lane = 1) or (n) shared; y, y_out, y_tmp
 // (n, B) float32; yb0, yb1 (n, B) bfloat16 scratch of the bf16 mode (the
-// iterate's rounding, ping-pong); tile_rows and tile_lanes in {16, 32, 64}
-// the bf16 mode's tile plan.  num_iters >= 1.
+// iterate's rounding, ping-pong).  The tile plan: float32 mode, tile_lanes
+// in {32, 64, 128} (tile_rows is 32); bf16 mode, tile_rows and tile_lanes
+// in {16, 32, 64}.  A float32 q and y start 16-byte aligned.
+// num_iters >= 1.
 extern "C" int pqp_iterations_tiled(const void* q, int q_bf16,
                                     const float* theta, const float* fdn,
                                     const float* fdp, int fd_lane,
@@ -345,10 +367,18 @@ extern "C" int pqp_iterations_tiled(const void* q, int q_bf16,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < 1 || B < 1 || num_iters < 1 || (long long)n > 65535LL * 16)
     return (int)cudaErrorInvalidValue;
-  if (!q_bf16)
-    return (int)pqp::launch_f32(static_cast<const float*>(q), theta, fdn,
-                                fdp, fd_lane, y, y_out, y_tmp, n, B,
-                                num_iters, den_eps, s);
+  if (!q_bf16) {
+    const auto* qf = static_cast<const float*>(q);
+#define PQP_F32_TILE(bn)                                                    \
+  if (tile_lanes == bn)                                                     \
+    return (int)pqp::launch_f32<bn>(qf, theta, fdn, fdp, fd_lane, y, y_out, \
+                                    y_tmp, n, B, num_iters, den_eps, s);
+    PQP_F32_TILE(32)
+    PQP_F32_TILE(64)
+    PQP_F32_TILE(128)
+#undef PQP_F32_TILE
+    return (int)cudaErrorInvalidValue;
+  }
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   auto* b0 = static_cast<__nv_bfloat16*>(yb0);
   auto* b1 = static_cast<__nv_bfloat16*>(yb1);

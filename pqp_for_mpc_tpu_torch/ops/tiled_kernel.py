@@ -24,9 +24,10 @@ counts its launches per stream type in
 ``streamed_pqp_iterations.launches``.  :func:`fused_pqp_iterations_tiled`
 keeps the JAX signature (unsplit ``Qd`` and ``theta``) for the tests.  The
 TPU's slab picker and VMEM budgets (``pick_tiled_blocks``) are not ported.
-The float32 mode runs fixed 32-row x 64-lane tiles on the CUDA cores; the
-bfloat16 mode runs its products on the tensor cores (bf16 MMAs with float32
-accumulation) over the tiles of :func:`k3_bf16_plan` (see the source).
+The float32 mode runs K4's float32 FMA tile on the CUDA cores over the
+tiles of :func:`k3_f32_plan`; the bfloat16 mode runs its products on the
+tensor cores (bf16 MMAs with float32 accumulation) over the tiles of
+:func:`k3_bf16_plan` (see the source).
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from __future__ import annotations
 import torch
 
 from pqp_for_mpc_tpu_torch.ops import build
-from pqp_for_mpc_tpu_torch.ops.kernels import _matrix, _on_cuda, _panel
+from pqp_for_mpc_tpu_torch.ops.kernels import (_aligned16, _matrix,
+                                               _on_cuda, _panel)
 from pqp_for_mpc_tpu_torch.solver import _as2d
 
 STREAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -66,6 +68,42 @@ def streamed_matrix(Qd: torch.Tensor, theta: torch.Tensor,
 #: streaming multiprocessors of an H100 SXM: the bf16 tile plan's target
 #: block count (one block per SM at least)
 H100_SMS = 132
+
+#: the float32 FMA tile of K4 and of K3's float32 mode
+#: (``csrc/fma_tile.cuh``: ``BM``, ``kThreads``, ``kStages``, ``BK``)
+FMA_TILE_ROWS, FMA_THREADS, FMA_STAGES, FMA_BK = 32, 256, 3, 64
+
+
+def fma_tile_lanes(B: int) -> int:
+    """The narrowest of 32, 64 and 128 lanes that holds ``B``, else 128
+    (``fma::tile_lanes``)."""
+    return 32 if B <= 32 else 64 if B <= 64 else 128
+
+
+def fma_smem_bytes(lanes: int) -> int:
+    """Shared memory of one FMA-tile block of ``lanes`` lanes: the ring
+    of A slabs (row-major rows padded to 68 floats, or transposed rows to
+    36) and of X slabs."""
+    a_slab = max(FMA_TILE_ROWS * (FMA_BK + 4), FMA_BK * (FMA_TILE_ROWS + 4))
+    return 4 * FMA_STAGES * (a_slab + FMA_BK * lanes)
+
+
+def k3_f32_plan(n: int, B: int) -> dict:
+    """The float32 mode's tile plan for ``Y (n, B)``: K4's, 32-row tiles
+    of the FMA tile as wide as :func:`fma_tile_lanes` makes them.  At
+    N = 4096, B = 128 that is 128 blocks of 32 x 128, one per SM, Q read
+    once per update; measured on an H100 (``tools/probe_k3.py``) they beat
+    64 lanes over 256 blocks (4 x 4 FMAs per thread against 4 x 2).  Each
+    entry's sum is one FMA chain in ascending k whatever the plan, so
+    every plan gives the same bits."""
+    if n < 1 or B < 1:
+        raise ValueError(f"k3_f32_plan needs n, B >= 1, got {n}, {B}")
+    lanes = fma_tile_lanes(B)
+    return dict(tile_rows=FMA_TILE_ROWS, tile_lanes=lanes,
+                threads=FMA_THREADS,
+                blocks=-(-n // FMA_TILE_ROWS) * -(-B // lanes),
+                smem_bytes=fma_smem_bytes(lanes),
+                staged_by_cp_async=n % 4 == 0 and B % 4 == 0)
 
 
 def k3_bf16_plan(n: int, B: int, sms: int = H100_SMS) -> dict:
@@ -151,13 +189,15 @@ def streamed_pqp_iterations(Q: torch.Tensor, theta: torch.Tensor,
         return y.clone()
     out = torch.empty_like(y)
     tmp = torch.empty_like(y) if num_iters > 1 else out
-    rows = lanes = 0
     yb = None
     if mode == "bfloat16":
         # the iterate's bf16 rounding, ping-pong, for the tensor cores
         plan = k3_bf16_plan(N, B)
-        rows, lanes = plan["tile_rows"], plan["tile_lanes"]
         yb = torch.empty((2, N, B), dtype=torch.bfloat16, device=dev)
+    else:
+        plan = k3_f32_plan(N, B)
+        y = _aligned16(y)                   # the tile stages y by cp.async
+    rows, lanes = plan["tile_rows"], plan["tile_lanes"]
     lib = build.load_library()
     code = lib.pqp_iterations_tiled(
         q.data_ptr(), int(mode == "bfloat16"), th.data_ptr(), fdn.data_ptr(),

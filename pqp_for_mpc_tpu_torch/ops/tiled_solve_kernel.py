@@ -41,16 +41,15 @@ from pqp_for_mpc_tpu_torch.ops.solve_kernel import (LANE_CERTIFIED,
                                                     LANE_MAX_ITERS,
                                                     LANE_STALLED,
                                                     fused_result)
-from pqp_for_mpc_tpu_torch.ops.tiled_kernel import streamed_matrix
+from pqp_for_mpc_tpu_torch.ops.tiled_kernel import (FMA_THREADS,
+                                                    FMA_TILE_ROWS,
+                                                    fma_smem_bytes,
+                                                    fma_tile_lanes,
+                                                    streamed_matrix)
 
 #: rows of one partial per-lane sum in the kernel (``kChunk``) and the most
 #: sums one of its lane phases carries (``kMaxSums``)
 _CHUNK, _MAX_SUMS = 256, 5
-
-
-#: the kernel's tile rows, threads, ring stages and slab depth
-#: (``csrc/fma_tile.cuh``: ``BM``, ``kThreads``, ``kStages``, ``BK``)
-_TILE_ROWS, _THREADS, _STAGES, _BK = 32, 256, 3, 64
 
 
 def k4_plan(n: int, m: int, B: int) -> dict:
@@ -64,14 +63,14 @@ def k4_plan(n: int, m: int, B: int) -> dict:
     entry by entry."""
     if n < 1 or m < 1 or B < 1:
         raise ValueError(f"k4_plan needs n, m, B >= 1, got {n}, {m}, {B}")
-    lanes = 32 if B <= 32 else 64 if B <= 64 else 128
+    lanes = fma_tile_lanes(B)
     lane_tiles = -(-B // lanes)
-    tiles = lambda rows: -(-rows // _TILE_ROWS) * lane_tiles
-    a_slab = max(_TILE_ROWS * (_BK + 4), _BK * (_TILE_ROWS + 4))
-    return dict(tile_rows=_TILE_ROWS, tile_lanes=lanes, threads=_THREADS,
-                blocks=tiles(n), check_tiles=tiles(n) + tiles(m),
+    tiles = lambda rows: -(-rows // FMA_TILE_ROWS) * lane_tiles
+    return dict(tile_rows=FMA_TILE_ROWS, tile_lanes=lanes,
+                threads=FMA_THREADS, blocks=tiles(n),
+                check_tiles=tiles(n) + tiles(m),
                 q_reads_per_update=lane_tiles,
-                smem_bytes=4 * _STAGES * (a_slab + _BK * lanes),
+                smem_bytes=fma_smem_bytes(lanes),
                 vector_staging=n % 4 == 0 and m % 4 == 0 and B % 4 == 0)
 
 

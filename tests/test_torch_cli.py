@@ -239,8 +239,30 @@ def test_bench_tiny(capsys):
     assert got["value"] > 0
 
 
+def test_bench_example_prints_the_metric_line(capsys):
+    # the twin of bench.py (pqp_for_mpc_tpu_torch.bench): one JSON line
+    # with bench.py's keys; on the CPU the router picks the plain solve
+    argv = ["bench-example", "--batch", "256", "--repeats", "1"]
+    assert tmain(argv + CPU) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    got = json.loads(lines[0])
+    assert {"metric", "value", "unit", "vs_baseline", "batch", "mean_iters",
+            "converged_frac", "seconds_per_batch", "platform"} <= set(got)
+    assert got["metric"] == "example_qp_solves_per_s"
+    assert got["batch"] == 256 and got["converged_frac"] == 1.0
+    assert got["platform"] == "cpu" and got["engine"] == "xla"
+    assert got["value"] > 0
+
+
+def test_bench_example_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default builds there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmain(["bench-example", "--batch", "8", "--repeats", "1"])
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["bench-example"], "item 3"),
     (["estimate", "--kind", "kf"], "item 10"),
     (["rollout", "--backend", "stagewise"], "item 10"),
     (["rollout", "--robust-w", "0.1,0.1"], "item 10"),

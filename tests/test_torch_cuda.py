@@ -22,10 +22,12 @@ values that agree to rounding near the optimum, so two correct summation
 orders can take different steps and a rare lane's trajectory (never its
 state or U bar) drifts further.  K5, K6 and K8 are held like K1 and K4,
 K7 like K3.  Every kernel whose reductions run in a fixed order repeats
-every bit on a second launch; the tests of K2 and K4–K8 check it.  K2 and
-K4 also carry a NaN lane of Y to NaN where the plain version does, and no
-further, and take operands that are contiguous views at a storage offset
-that is not 16-byte aligned, with the bits of an aligned launch.  K1 is
+every bit on a second launch; the tests of K2, K3 and K4–K8 check it; K3's
+float32 mode also gives the same bits at every lane width of its tile.  K2
+and K4 also carry a NaN lane of Y to NaN where the plain version does, and
+no further, and K2, K3's float32 mode and K4 take operands that are
+contiguous views at a storage offset that is not 16-byte aligned, with the
+bits of an aligned launch.  K1 is
 also held on a batch whose lanes retire after 1 to 25 checks (its slots
 are refilled from the lane queue), at B = 1, 5, 129 and 4,099, with a NaN
 lane that leaves every other lane's bits as they were, with panels at an
@@ -360,6 +362,51 @@ def test_k3_bf16_tensor_core_plans_match_plain(dev, N, B):
     assert k3.launches["bfloat16"] == before + 1
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)
     assert bool((k3(*args, num_iters=16, den_eps=1e-30) == got).all())
+
+
+def _k3_f32_args(dev, N, B):
+    primal, dual = _random_problem(dev, N, N // 4, B)
+    Y = torch.as_tensor(np.random.default_rng(1).uniform(0.5, 2.0, (N, B))
+                        .astype(np.float32), device=dev)
+    Q, th = tiled_kernel.streamed_matrix(dual.Qd, dual.theta, "float32")
+    return Q, th, dual.Fdn, dual.Fdp, Y
+
+
+@pytest.mark.parametrize("N,B", [(4096, 128), (256, 1), (203, 5)])
+def test_k3_f32_plans_repeat_their_bits(dev, monkeypatch, N, B):
+    # the FMA tile at 32, 64 and 128 lanes: the streamed workload's shape
+    # (cp.async in 16-byte chunks), the H=64 loop's single lane and a
+    # ragged shape (entry by entry); each entry's sum is one FMA chain in
+    # ascending k whatever the tiling, so every plan gives the same bits
+    args = _k3_f32_args(dev, N, B)
+    k3 = tiled_kernel.streamed_pqp_iterations
+    want = tiled_kernel.streamed_pqp_iterations_reference(
+        *args, num_iters=16, den_eps=1e-30)
+    shipped = tiled_kernel.k3_f32_plan
+    outs = []
+    for lanes in (32, 64, 128):
+        plan = dict(shipped(N, B), tile_lanes=lanes)
+        monkeypatch.setattr(tiled_kernel, "k3_f32_plan", lambda n, b: plan)
+        before = k3.launches["float32"]
+        got = k3(*args, num_iters=16, den_eps=1e-30)
+        torch.cuda.synchronize()
+        assert k3.launches["float32"] == before + 1
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(k3(*args, num_iters=16, den_eps=1e-30)
+                           .view(torch.int32), got.view(torch.int32))
+        outs.append(got)
+    for got in outs[1:]:
+        assert torch.equal(got.view(torch.int32), outs[0].view(torch.int32))
+
+
+def test_k3_f32_takes_y_at_an_odd_offset(dev):
+    # the tile stages y by 16-byte cp.async: the wrapper copies a view that
+    # does not start 16-byte aligned, and the bits are an aligned launch's
+    Q, th, fdn, fdp, Y = _k3_f32_args(dev, 1024, 128)
+    k3 = tiled_kernel.streamed_pqp_iterations
+    want = k3(Q, th, fdn, fdp, Y, num_iters=4, den_eps=1e-30)
+    got = k3(Q, th, fdn, fdp, _at_odd_offset(Y), num_iters=4, den_eps=1e-30)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 K4_CASES = {

@@ -279,6 +279,36 @@ def test_k3_bf16_tile_plan():
         plan(0, 4)
 
 
+@pytest.mark.parametrize("n", [200, 4096])
+@pytest.mark.parametrize("B", [1, 5, 72, 128])
+def test_k3_f32_tile_plan(n, B):
+    p = tiled_kernel.k3_f32_plan(n, B)
+    lanes = p["tile_lanes"]
+    assert p["tile_rows"] == 32 and lanes in (32, 64, 128)
+    assert p["threads"] == 256
+    assert p["blocks"] == -(-n // 32) * -(-B // lanes)
+    # the FMA tile's lanes for the batch, as K4's
+    assert lanes == tiled_kernel.fma_tile_lanes(B)
+    assert lanes == tiled_solve_kernel.k4_plan(n, n // 4, B)["tile_lanes"]
+    # the ring of three 64-deep slabs fits a block's 227 KB
+    assert p["smem_bytes"] == 4 * 3 * (2304 + 64 * lanes) <= 232448
+    assert p["staged_by_cp_async"] == (n % 4 == 0 and B % 4 == 0)
+
+
+def test_k3_f32_tile_plan_measured_shapes():
+    # N=4096, B=128: 128 blocks of 32 x 128 (123 KB each), one per SM, Q
+    # read once per update; N=1024, B=128: 32 blocks of 32 x 128
+    plan = tiled_kernel.k3_f32_plan
+    p = plan(4096, 128)
+    assert (p["tile_lanes"], p["blocks"], p["smem_bytes"]) == (128, 128,
+                                                                125952)
+    assert p["staged_by_cp_async"]
+    assert (plan(1024, 128)["tile_lanes"], plan(1024, 128)["blocks"]) == (
+        128, 32)
+    with pytest.raises(ValueError):
+        plan(0, 4)
+
+
 def test_k4_plain_carries_a_nan_lane_like_jax():
     # a NaN entry of Y0 stays in its own lane on both sides: the lane passes
     # the in-kernel test at the first check (every comparison with NaN is

@@ -9,7 +9,7 @@ DIR is a ``csrc/`` directory whose ``full_solve.cu`` and
 ``full_solve_packed.cu`` keep the C entry points of the one-thread-per-lane
 design (the matrices passed one by one, no lane queue): e.g. the commit
 before the engine, unpacked with ``git archive``.  On the main path's
-workload (M=7/N=28, seed 0, ``chip_smoke.workload``, SMOKE_CFG) at
+workload (M=7/N=28, seed 0, ``bench.example_workload``, SMOKE_CFG) at
 B = 2^16, 2^20 and 2^22 it times each kernel of both builds, one launch
 per turn in the order shipped K1, parent K1, shipped K8, parent K8 and
 then reversed, two turns each way, and gives the time per lane (the drain
@@ -47,6 +47,7 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from pqp_for_mpc_tpu_torch.bench import example_workload  # noqa: E402
 import pqp_for_mpc_tpu_torch as pqp  # noqa: E402
 import test_torch_cuda as card  # noqa: E402
 from pqp_for_mpc_tpu_torch.config import MPC_CONFIG  # noqa: E402
@@ -218,7 +219,7 @@ def main() -> int:
 
     for log2 in sorted(int(x) for x in opts.batches.split(",")):
         B = 1 << log2
-        primal, dual = cs.workload(B, dev)
+        primal, dual = example_workload(B, dev)
         args, kw = sk.fused_inputs(primal, dual, None, cfg)
         out = k1(*args, **kw)
         old = parent_solve(parent, "full_solve_f32", args, kw)

@@ -29,6 +29,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from pqp_for_mpc_tpu_torch.bench import example_workload  # noqa: E402
 from pqp_for_mpc_tpu_torch.ops import build, kernels  # noqa: E402
 from probe_k5 import build_variants, ptxas_lines, smi_line  # noqa: E402
 
@@ -44,7 +45,7 @@ def main() -> int:
         return 1
     smi = smi_line()
     dev = torch.device("cuda", 0)
-    _, dual = cs.workload(cs.B_MAIN, dev)
+    _, dual = example_workload(cs.B_MAIN, dev)
     Y = torch.as_tensor(np.random.default_rng(3).uniform(
         0.01, 10.0, (dual.n_con, cs.B_MAIN)).astype(np.float32), device=dev)
     args = (dual.Qdn_theta, dual.Qdp_theta, dual.Fdn, dual.Fdp, Y)

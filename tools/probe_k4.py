@@ -16,7 +16,9 @@ each build's time into phases from three solves cut at max_iters = 320 (no
 lane certifies that early): checks every 16 and every 2 updates without
 acceleration, and every 16 with it — an update U, a check with its stall
 test C and an accel step A from 320 U + 20 C, 320 U + 160 C and
-320 U + 20 (C + A).  Holds each build to the plain version on that
+320 U + 20 (C + A).  Holds each build to the shipped build's Y, U,
+iterations and states on the streamed workload, bit for bit
+(``bits_equal_shipped``), and to the plain version on that
 workload and on the four cases of ``tests/test_torch_cuda.py::
 test_k4_kernel_matches_plain``: lanes whose state differs (lane, state,
 plain state, iterations, plain iterations), the largest iteration
@@ -138,6 +140,7 @@ def main() -> int:
         print(json.dumps({
             "probe": "k4_build", "build": name, "ptxas": libs[name][1],
             "ms": times[name], "phases": phases,
+            "bits_equal_shipped": cs.bits_equal(outs[name], outs["shipped"]),
             "iters_mean": float(it.float().mean()),
             "certified": int((st == 1).sum()),
             "n4096_vs_plain": against_plain(outs[name], plain, 16),

@@ -3,7 +3,7 @@
 
     python3 tools/probe_k8.py
 
-1. Times the H=16 closed loop (``chip_smoke.mpc_spec(16, 0.0)``, 200
+1. Times the H=16 closed loop (``bench.example_spec(16, 0.0)``, 200
    steps) through ``rollout_jit`` and ``rollout`` in turns, then profiles
    50 steps of each with ``torch.profiler``: kernel launches, device time,
    host syncs.
@@ -31,6 +31,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from pqp_for_mpc_tpu_torch.bench import example_spec, example_workload  # noqa: E402
 from pqp_for_mpc_tpu_torch.config import MPC_CONFIG  # noqa: E402
 from pqp_for_mpc_tpu_torch.models import MPCController  # noqa: E402
 from pqp_for_mpc_tpu_torch.ops import packed_kernel as pk  # noqa: E402
@@ -41,7 +42,7 @@ def closed_loop(dev) -> None:
     for rnd in range(2):
         for name in (("rollout_jit", "rollout") if rnd == 0
                      else ("rollout", "rollout_jit")):
-            ctrl = MPCController(cs.mpc_spec(16, 0.0), device=dev)
+            ctrl = MPCController(example_spec(16, 0.0), device=dev)
             getattr(ctrl, name)([2.0, 0.0], 5)
             ctrl.reset()
             torch.cuda.synchronize()
@@ -53,7 +54,7 @@ def closed_loop(dev) -> None:
                   float(out["iters"].mean()), flush=True)
     steps = 50
     for name in ("rollout_jit", "rollout"):
-        ctrl = MPCController(cs.mpc_spec(16, 0.0), device=dev)
+        ctrl = MPCController(example_spec(16, 0.0), device=dev)
         getattr(ctrl, name)([2.0, 0.0], 5)
         ctrl.reset()
         torch.cuda.synchronize()
@@ -80,7 +81,7 @@ def closed_loop(dev) -> None:
 def accel_states(dev) -> None:
     cfg = dataclasses.replace(MPC_CONFIG, feas_from_dual_gradient=False)
     for B, r in ((2048, 2.5), (4096, 2.5), (4096, 0.0)):
-        primal, dual = cs.workload(B, dev, horizon=16, r=r)
+        primal, dual = example_workload(B, dev, horizon=16, r=r)
         a, k = sk.fused_inputs(primal, dual, None, cfg)
         o8 = pk.fused_full_solve_packed(*a, **k)
         p8 = pk.fused_full_solve_packed_reference(*a, **k)
