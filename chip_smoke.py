@@ -40,11 +40,26 @@ at full size and times them:
   grid that refills a lane slot from a global queue as its lane retires);
 * the H = 16 closed loop through ``MPCController.rollout_jit`` (the loop
   kept on the card, 200 steps) timed against ``rollout``;
+* the stage-wise long-horizon backend (no hand-written kernel lies on it:
+  every kernel counter is read before and after its phases and must not
+  move): ``examples/long_horizon_mpc.py 512 30``'s closed loop through
+  ``MPCController(backend="auto")`` (the double integrator at H = 512,
+  n_con = 2,048; every step certified; launches per update, check and
+  accel step counted by ``torch.profiler``), a fan-out of 1,024 states at
+  H = 512 audited in float64, and the output-bounded spec at H = 256; the
+  condensed/stage-wise crossover behind ``auto_backend`` (the same spec
+  and cfg through both backends at H = 64-384, u held to the parity bar
+  against the condensed plain route, ms per step of each); and
+  ``solve_qp_implicit`` on ``examples/differentiable_mpc.py``'s problem
+  (the card's gradient against the CPU's, the example's tuning loop, a
+  ``torch.func.vmap`` batch of 256 against one at a time);
 * the command line, as subprocesses of ``python -m pqp_for_mpc_tpu_torch``:
   ``generate``, ``solve-file`` (engines auto, fused and mixed; the auto
   line held against the same command on the CPU), ``bench`` (riding K2),
   ``bench-example`` (the North-star line, held to the K1 route's rate
-  within 10%), ``rollout --jit`` and ``serve``.
+  within 10%), ``rollout --jit``, ``rollout --backend stagewise`` at
+  H = 512, ``rollout --robust-w`` on both backends and ``serve`` (an
+  H = 512 spec request among them).
 
 Each kernel is held against its plain version at the shapes its path gives
 it.  The ``launches`` of the kernel table are those of ONE call of each
@@ -140,6 +155,22 @@ CLI_FLAGS = ["--y0", "0.01", "--accel-every", "4", "--check-every", "8",
              "--no-strict", "--max-iters", "50000", "--eaj", "1e-3",
              "--erj", "1e-4", "--erc", "1e-4", "--eac", "1e-4"]
 CLI_SEED = 3
+
+#: the long-horizon drive (examples/long_horizon_mpc.py 512 30): the double
+#: integrator at H = 512 (n_con = 2,048), the stage-wise backend
+H_LONG, LONG_STEPS = 512, 30
+#: the stage-wise fan-out's batch (x0 ~ U(-2, 2) from seed 0) and the
+#: horizons of the condensed/stage-wise crossover reading
+B_FAN, CROSS_H, CROSS_STEPS = 1024, (64, 128, 256, 384), 10
+#: the crossover's limit on U per horizon: each backend's first QP against
+#: its float64 optimum, and the two backends' first QPs against each other
+#: (twice this for their closed loops, where a step's input moves the next
+#: step's state).  Both backends stop on the same relative gap, and the
+#: long, nearly cost-free tail of U lets a certified answer drift further
+#: from the optimum as H grows: the limits are about twice the card's
+#: readings (PERF.md), the JAX package's 2e-3 bar between its backends
+#: (tests/test_stagewise.py, H=12) up to H=128
+CROSS_TOL = {64: 2e-3, 128: 2e-3, 256: 5e-3, 384: 1e-2}
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32 on the
 #: CUDA cores and bf16 on the tensor cores, FLOP/s
@@ -452,6 +483,380 @@ def cli_fields(line: str) -> dict:
     return dict(kv.split("=", 1) for kv in line.split() if "=" in kv)
 
 
+def long_horizon_spec(H: int, **extra):
+    """examples/long_horizon_mpc.py's spec at horizon H: the double
+    integrator, Qy = I, R = 0.05 I, r = 0, |u| <= 1, |du| <= 0.5."""
+    from pqp_for_mpc_tpu_torch.models import MPCSpec, double_integrator
+    kw = dict(Qy=np.eye(1), R=0.05 * np.eye(1), r=np.zeros(1),
+              u_min=-np.ones(1), u_max=np.ones(1), du_max=0.5 * np.ones(1))
+    kw.update(extra)
+    return MPCSpec(double_integrator(), horizon=H, **kw)
+
+
+def kernel_counts() -> dict:
+    """Every hand-written kernel's launch counter, by kernel."""
+    from pqp_for_mpc_tpu_torch.ops import (distinct_kernel,
+                                           distinct_tiled_kernel, kernels,
+                                           packed_kernel, solve_kernel,
+                                           tiled_kernel, tiled_solve_kernel)
+    k3 = tiled_kernel.streamed_pqp_iterations.launches
+    k7 = distinct_tiled_kernel.distinct_streamed_iterations.launches
+    return {"k1": solve_kernel.fused_full_solve.launches,
+            "k2": kernels.fused_pqp_iterations.launches,
+            "k3": k3["float32"] + k3["bfloat16"],
+            "k4": tiled_solve_kernel.fused_full_solve_tiled.launches,
+            "k5": distinct_kernel.fused_full_solve_distinct.launches,
+            "k6": distinct_tiled_kernel.fused_full_solve_distinct_tiled
+            .launches,
+            "k7": k7["float32"] + k7["bfloat16"],
+            "k8": packed_kernel.fused_full_solve_packed.launches}
+
+
+def profiled_launches(fn) -> dict:
+    """Kernels the card ran during one call of ``fn`` (``torch.profiler``'s
+    device events, memory copies and sets apart) and the kernel launches
+    the host issued (its CUDA runtime events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    return dict(
+        device=sum(1 for e in events if e.device_type == cuda
+                   and not e.name.startswith(("Memcpy", "Memset"))),
+        host=sum(1 for e in events
+                 if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))))
+
+
+def stagewise_launches(sd, x0, cfg) -> dict:
+    """Launches per update, per check and per accel step of
+    ``solve_stagewise`` on this dual, from profiled solves that never
+    certify (eaj < 0) and stop at max_iters: L(k, n, a) checks every k
+    updates, accelerates every a, runs n*k updates and n + 1 checks, so
+    L(16, 1, 0) - L(8, 1, 0) = 8 updates, L(8, 2, 0) - L(8, 1, 0) = one
+    check and 8 updates, L(8, 1, 4) - L(8, 1, 0) = 2 accel steps."""
+    from pqp_for_mpc_tpu_torch.models import solve_stagewise
+
+    def L(k, n, a):
+        c = dataclasses.replace(cfg, check_every=k, accel_every=a,
+                                max_iters=k * n, eaj=-1.0)
+        return profiled_launches(lambda: solve_stagewise(sd, x0, cfg=c))
+
+    L(8, 1, 0)                                  # warm-up
+    base, two, long_, acc = L(8, 1, 0), L(8, 2, 0), L(16, 1, 0), L(8, 1, 4)
+    out = {}
+    for key in ("device", "host"):
+        upd = (long_[key] - base[key]) / 8
+        out[f"{key}_per_update"] = upd
+        out[f"{key}_per_check"] = two[key] - base[key] - 8 * upd
+        out[f"{key}_per_accel"] = (acc[key] - base[key]) / 2
+    return out
+
+
+def f64_box_slew_violation(U, Kp) -> float:
+    """max(G U - Kp) in float64 over the box and slew rows of a single-input
+    stage-wise problem: ``U (H, B)``, ``Kp (4, H)`` = [umax, -umin,
+    dmax + e1 uprev, dmax - e1 uprev]."""
+    U = np.asarray(U, np.float64)
+    Kp = np.asarray(Kp, np.float64)[:, :, None]
+    TU = U - np.concatenate([np.zeros_like(U[:1]), U[:-1]])
+    return float(np.stack([U - Kp[0], -U - Kp[1], TU - Kp[2],
+                           -TU - Kp[3]]).max())
+
+
+def f64_optimum(spec, x0, y) -> np.ndarray:
+    """The optimum U of ``spec``'s QP (tracking r = 0) from state ``x0``,
+    in float64, by a primal active-set refinement started from the rows
+    where the float32 multipliers ``y`` exceed 1e-3 of their largest: each
+    round solves the KKT system on the working rows, drops the row of the
+    most negative multiplier or adds the most violated row, and stops when
+    every row holds to 1e-9 and every multiplier is >= -1e-9 (the float64
+    optimality conditions); raises past 4 rounds per row."""
+    from pqp_for_mpc_tpu_torch.models.mpc import (_input_constraints_f64,
+                                                  _prediction_matrices_f64)
+    H = spec.horizon
+    Sx, Su, _ = _prediction_matrices_f64(spec.plant, H)
+    Cs = np.kron(np.eye(H), np.asarray(spec.plant.C, np.float64))
+    Qbar = np.kron(np.eye(H), np.asarray(spec.Qy, np.float64))
+    Qp = 2.0 * (Su.T @ Cs.T @ Qbar @ Cs @ Su
+                + np.kron(np.eye(H), np.asarray(spec.R, np.float64)))
+    Fp = 2.0 * Su.T @ Cs.T @ Qbar @ Cs @ Sx @ np.asarray(x0, np.float64)
+    G, K = _input_constraints_f64(spec)
+    M = Qp.shape[0]
+    work = list(np.flatnonzero(y > 1e-3 * y.max()))
+    for _ in range(4 * len(G)):
+        GA = G[work]
+        kkt = np.block([[Qp, GA.T], [GA, np.zeros((len(work),) * 2)]])
+        sol = np.linalg.lstsq(kkt, np.concatenate([-Fp, K[work]]),
+                              rcond=None)[0]
+        U, lam = sol[:M], sol[M:]
+        viol = G @ U - K
+        if len(work) and lam.min() < -1e-9:
+            work.pop(int(np.argmin(lam)))
+        elif viol.max() > 1e-9:
+            work.append(int(np.argmax(viol)))
+        else:
+            return U
+    raise AssertionError("the float64 active-set refinement did not end")
+
+
+def stagewise_paths(dev, smi: str) -> None:
+    """The stage-wise long-horizon backend on the card (no hand-written
+    kernel lies on it: every kernel counter stays at 0 over its phases),
+    the condensed/stage-wise crossover and ``solve_qp_implicit``."""
+    import torch
+    from pqp_for_mpc_tpu_torch import SolverConfig, solve_qp_implicit
+    from pqp_for_mpc_tpu_torch.config import stagewise_mpc_config
+    from pqp_for_mpc_tpu_torch.models import (MPCController, condense,
+                                              solve_stagewise,
+                                              stagewise_dual)
+    from pqp_for_mpc_tpu_torch.models.stagewise import rollout_states
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "torch.backends.cuda.matmul.allow_tf32 is on")
+    zero = {k: 0 for k in kernel_counts()}
+    before = kernel_counts()
+    x2 = np.array([2.0, 0.0], np.float32)
+
+    # -- the H=512 closed loop: backend="auto" past the n_con line -------
+    spec = long_horizon_spec(H_LONG)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctrl = MPCController(spec, backend="auto", warm_start="shift",
+                         retry_cold=True, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    require(ctrl.backend == "stagewise" and ctrl.data is None,
+            f"H=512 auto built {ctrl.backend!r}")
+    ctrl.rollout_jit(x2, LONG_STEPS)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = ctrl.rollout_jit(x2, LONG_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    loop_peak = torch.cuda.max_memory_allocated()
+    cert = int(out["converged"].sum())
+    sd1 = stagewise_dual(spec, theta_floor=ctrl.cfg.theta_floor, device=dev)
+    launches = stagewise_launches(
+        sd1, torch.tensor([[2.0], [0.0]], device=dev), ctrl.cfg)
+    emit("stagewise_h512_closed_loop", horizon=H_LONG, n_con=ctrl.n_con,
+         band=sd1.band, steps=LONG_STEPS, certified=cert,
+         certified_share=cert / LONG_STEPS,
+         iters_mean=float(out["iters"].mean()),
+         iters_max=int(out["iters"].max()), iters=out["iters"].tolist(),
+         ms_per_step=secs / LONG_STEPS * 1e3, steps_per_s=LONG_STEPS / secs,
+         final_state_norm=float(np.linalg.norm(out["x"][-1])),
+         build_seconds=build_s, build_peak_bytes=build_peak,
+         peak_memory_bytes=loop_peak, launches=launches, nvidia_smi=smi)
+    require(cert == LONG_STEPS,
+            f"H=512 loop certified {cert} of {LONG_STEPS} steps")
+
+    # -- the fan-out: B=1024 states at H=512 (tests/test_stagewise.py's
+    #    cfg), with the float64 audit of every certified lane ------------
+    cfg_fan = SolverConfig(max_iters=2000, check_every=16, accel_every=8,
+                           y0=0.01, eaj=1e-2, erj=1e-3, erc=1e-4, eac=1e-4,
+                           strict_weak_duality=False,
+                           gap_from_complementarity=True)
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+        -2.0, 2.0, (2, B_FAN)).astype(np.float32), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, ms = timed_once(lambda: solve_stagewise(sd1, x0, cfg=cfg_fan))
+    fan_peak = torch.cuda.max_memory_allocated()
+    conv = res.converged.cpu().numpy()
+    U = res.U.cpu().numpy()[:, conv]
+    viol = f64_box_slew_violation(U, sd1.Kp.cpu().numpy()[:, :, 0])
+    u_abs = float(np.abs(U).max())
+    emit("stagewise_fan_out", horizon=H_LONG, batch=B_FAN,
+         certified_share=float(conv.mean()),
+         iters_mean=float(res.iters.float().mean()),
+         iters_max=int(res.iters.max()), ms=ms,
+         f64_max_violation=viol, u_abs_max=u_abs, peak_memory_bytes=fan_peak,
+         nvidia_smi=smi)
+    require(conv.mean() >= 0.99, f"fan-out certified {conv.mean():.4f}")
+    require(viol <= 5e-4, f"fan-out float64 violation {viol}")
+    require(u_abs <= 1.0 + 5e-4, f"fan-out |U| {u_abs}")
+    del res, U, x0
+    torch.cuda.empty_cache()
+
+    # -- output bounds at H=256: y <= 1.9 below a reference of 2.5 -------
+    spec_y = long_horizon_spec(256, r=np.full(1, 2.5), y_min=np.full(1, -1.9),
+                               y_max=np.full(1, 1.9))
+    cfg_y = SolverConfig(max_iters=5000, check_every=16, accel_every=8,
+                         y0=0.01, eaj=1e-2, erj=1e-3, erc=5e-4, eac=5e-4,
+                         strict_weak_duality=False,
+                         gap_from_complementarity=True)
+    sd_y = stagewise_dual(spec_y, theta_floor=cfg_y.theta_floor, device=dev)
+    xy = torch.tensor([[1.0], [0.2]], device=dev)
+    res, ms_y = timed_once(lambda: solve_stagewise(sd_y, xy, cfg=cfg_y))
+    y = rollout_states(sd_y.factor, xy, res.U.reshape(256, 1, 1))[
+        :, 0, 0].cpu().numpy()
+    ctrl_y = MPCController(spec_y, backend="stagewise", warm_start="shift",
+                           retry_cold=True, device=dev)
+    loop_y = ctrl_y.rollout_jit([1.0, 0.2], 10)
+    emit("stagewise_outputs_h256", n_con=sd_y.n_con, band=sd_y.band,
+         converged=bool(res.converged.all()), iters=int(res.iters.max()),
+         ms=ms_y, y_max=float(y.max()), y_last=float(y[-1]),
+         u_abs_max=float(res.U.abs().max()),
+         loop_certified=int(loop_y["converged"].sum()),
+         loop_y_max=float(loop_y["x"][:, 0].max()),
+         loop_iters=loop_y["iters"].tolist(), nvidia_smi=smi)
+    require(bool(res.converged.all()) and y.max() <= 1.9 + 2e-3
+            and y[-1] > 1.7 and float(res.U.abs().max()) <= 1.0 + 1e-3,
+            "H=256 output-bounded solve")
+    require(bool(loop_y["converged"].all())
+            and loop_y["x"][:, 0].max() <= 1.9 + 2e-3,
+            "H=256 output-bounded loop")
+    after = kernel_counts()
+    used = {k: after[k] - before[k] for k in after}
+    emit("stagewise_path_kernel_launches", **used)
+    require(used == zero, f"a kernel launched on the stage-wise path: {used}")
+
+    # -- the condensed/stage-wise crossover (auto_backend's n_con line):
+    #    one spec through both backends under one cfg.  The first QP
+    #    (x0 = [2, 0], cold) is held, on each backend, to its float64
+    #    optimum and to the other backend; then 10 warm steps of each
+    #    backend's closed loop, the condensed one through its router's pick
+    #    and the plain solve, each held to the stage-wise loop's inputs ----
+    import pqp_for_mpc_tpu_torch.models.mpc as mpc_module
+    from pqp_for_mpc_tpu_torch import dualize, solve_batched
+    auto = mpc_module.solve_auto
+    x2t = torch.tensor([[2.0], [0.0]], device=dev)
+    cross = []
+    for H in CROSS_H:
+        spec_h = long_horizon_spec(H)
+        cfg = stagewise_mpc_config(H)
+        tol = CROSS_TOL[H]
+        row = dict(horizon=H, n_con=4 * H, u_tol=tol, loop_u_tol=2 * tol)
+        data = condense(spec_h, device=dev)
+        primal = data.assemble(x=x2t, Qp=data.qp())
+        first = {"stagewise": solve_stagewise(
+                     stagewise_dual(spec_h, device=dev), x2t, cfg=cfg),
+                 "condensed": solve_batched(primal, dualize(primal),
+                                            cfg=cfg)}
+        U64 = f64_optimum(spec_h, [2.0, 0.0],
+                          first["condensed"].Y[:, 0].cpu().numpy())
+        for name, r in first.items():
+            require(bool(r.converged.all()), f"H={H}: first {name} QP")
+            row[f"{name}_first_qp_iters"] = int(r.iters[0])
+            row[f"{name}_first_qp_err_f64"] = float(np.abs(
+                r.U[:, 0].double().cpu().numpy() - U64).max())
+        row["first_qp_backends_max_du"] = float(
+            (first["stagewise"].U - first["condensed"].U).abs().max())
+        runs = {}
+        for name in ("stagewise", "condensed_xla", "condensed_routed"):
+            if name == "condensed_xla":
+                mpc_module.solve_auto = (
+                    lambda *a, **k: auto(*a, engine="xla", **k))
+            try:
+                c = MPCController(spec_h, cfg=cfg,
+                                  backend=name.split("_")[0],
+                                  warm_start="shift", retry_cold=True,
+                                  device=dev)
+                c.rollout_jit(x2, 2)                       # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[name] = c.rollout_jit(x2, CROSS_STEPS)
+                torch.cuda.synchronize()
+                row[f"{name}_ms_per_step"] = (
+                    (time.perf_counter() - t0) / CROSS_STEPS * 1e3)
+            finally:
+                mpc_module.solve_auto = auto
+            row[f"{name}_certified"] = int(runs[name]["converged"].sum())
+            row[f"{name}_iters_mean"] = float(runs[name]["iters"].mean())
+            if name != "stagewise":
+                row[f"{name}_loop_max_du"] = float(np.abs(
+                    runs[name]["u"] - runs["stagewise"]["u"]).max())
+        emit("stagewise_vs_condensed", nvidia_smi=smi, **row)
+        cross.append(row)
+        require(row["stagewise_certified"] == CROSS_STEPS
+                and row["condensed_xla_certified"] == CROSS_STEPS,
+                f"H={H}: a step left uncertified: {row}")
+        require(max(row["stagewise_first_qp_err_f64"],
+                    row["condensed_first_qp_err_f64"]) <= tol,
+                f"H={H}: a backend's U is off its float64 optimum: {row}")
+        require(row["first_qp_backends_max_du"] <= tol,
+                f"H={H}: the backends' first U disagree: {row}")
+        require(max(row["condensed_xla_loop_max_du"],
+                    row["condensed_routed_loop_max_du"]) <= 2 * tol,
+                f"H={H}: the backends' closed loops disagree: {row}")
+    # -- solve_qp_implicit: examples/differentiable_mpc.py's problem ------
+    H = 8
+    spec_d = long_horizon_spec(H, R=np.eye(1), du_max=np.ones(1))
+    cfg_d = SolverConfig(max_iters=100_000, check_every=4, accel_every=4,
+                         y0=0.1, strict_weak_duality=False, eaj=1e-5,
+                         erj=1e-6)
+    datas = {d: condense(spec_d, device=d) for d in (dev, "cpu")}
+
+    def first_input(lr, d):
+        data = datas[d]
+        Qp = data.qp() + 2.0 * (torch.exp(lr) - 1.0) * torch.eye(
+            H, device=lr.device)
+        p = data.assemble(x=torch.tensor([1.5, 0.0], device=lr.device),
+                          D=torch.zeros(H, device=lr.device), Qp=Qp)
+        return solve_qp_implicit(Qp, p.Fp, p.Gp, p.Kp, cfg_d)[0]
+
+    grads = {}
+    for d in (dev, "cpu"):
+        lr = torch.zeros((), device=d, requires_grad=True)
+        u = first_input(lr, d)
+        u.backward()
+        require(u.device.type == torch.device(d).type,
+                f"the implicit solve left {d}")
+        grads[str(d)] = float(lr.grad)
+    g_card, g_cpu = grads[str(dev)], grads["cpu"]
+    # the example's tuning loop, on the card
+    lr = torch.zeros((), device=dev)
+    t0 = time.perf_counter()
+    for _ in range(30):
+        lr = lr.detach().requires_grad_()
+        ((first_input(lr, dev) + 0.6) ** 2).backward()
+        lr = lr - 0.5 * lr.grad
+    tune_s = time.perf_counter() - t0
+    u_tuned = float(first_input(lr.detach(), dev))
+    # a vmap batch of 256 Fp's on the card (one batched solve and one
+    # batched KKT solve) against one instance at a time: every lane on the
+    # CPU, the first 8 on the card (a single-lane solve is launch-bound
+    # there, ~0.3 s)
+    Fps = torch.as_tensor(np.random.default_rng(0).normal(
+        0.0, 2.0, (256, H)).astype(np.float32))
+    gsum = lambda fn: torch.func.grad(lambda a: (fn(a) ** 2).sum())
+    per_lane = {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        data = datas[d]
+        Qp = data.qp()
+        p = data.assemble(x=torch.tensor([1.5, 0.0], device=d), Qp=Qp)
+        fp = p.Fp[None] + Fps.to(d)
+        f = (lambda a, Qp=Qp, p=p:
+             solve_qp_implicit(Qp, a, p.Gp, p.Kp, cfg_d))
+        if where == "card":
+            gv, vmap_ms = timed_once(lambda: gsum(torch.func.vmap(f))(fp))
+        lanes = range(8) if where == "card" else range(256)
+        per_lane[where] = torch.stack([gsum(f)(fp[b]) for b in lanes])
+    vmap_tol = 1e-4 * max(1.0, float(per_lane["cpu"].abs().max()))
+    vmap_err = float((gv.cpu() - per_lane["cpu"]).abs().max())
+    card_lane_err = float((gv[:8] - per_lane["card"]).abs().max())
+    emit("diff", grad_card=g_card, grad_cpu=g_cpu,
+         rel_err=abs(g_card - g_cpu) / max(abs(g_cpu), 1e-30),
+         tuned_first_input=u_tuned, tuning_seconds=tune_s,
+         vmap_batch=256, vmap_grad_ms=vmap_ms,
+         vmap_vs_cpu_lanes_max_abs_err=vmap_err,
+         vmap_vs_card_lanes_max_abs_err=card_lane_err, vmap_tol=vmap_tol,
+         grad_device=gv.device.type, nvidia_smi=smi)
+    require(abs(g_card - g_cpu) <= 1e-3 * abs(g_cpu),
+            f"card gradient {g_card} against the CPU's {g_cpu}")
+    require(abs(u_tuned + 0.6) < 0.05, f"tuned first input {u_tuned}")
+    require(gv.device.type == "cuda" and vmap_err <= vmap_tol
+            and card_lane_err <= vmap_tol,
+            f"vmap gradients disagree: {vmap_err}, {card_lane_err}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -460,7 +865,7 @@ def main() -> int:
     import pqp_for_mpc_tpu_torch as pqp
     from pqp_for_mpc_tpu_torch.bench import (EXAMPLE_CFG, example_spec,
                                              example_workload)
-    from pqp_for_mpc_tpu_torch.config import MPC_CONFIG
+    from pqp_for_mpc_tpu_torch.config import MPC_CONFIG, stagewise_mpc_config
     from pqp_for_mpc_tpu_torch.models import MPCController
     from pqp_for_mpc_tpu_torch.ops import (build, kernels, packed_kernel,
                                            solve_kernel, tiled_kernel,
@@ -1296,7 +1701,11 @@ def main() -> int:
     del sp, sd, sd_free, k7_streams, Y7, s_args, out_k6
     torch.cuda.empty_cache()
 
-    # -- phase 12: the command line on the card, as subprocesses ---------
+    # -- phase 12: the stage-wise backend, the crossover, diff ----------
+    stagewise_paths(dev, smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 13: the command line on the card, as subprocesses ---------
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         inst = os.path.join(tmp, "inst.txt")
@@ -1364,10 +1773,50 @@ def main() -> int:
                 and all(r["converged"] == r["batch"] for r in replies)
                 and len(replies[1]["u0"]) == 1,
                 f"cli serve: {rc} {out_s} {err}")
+        # the stage-wise backend and the robust tube from the command line:
+        # the JSON line carries no verdicts, and an uncertified step runs
+        # to max_iters, so every step certified <=> iters_max < max_iters
+        lines_sw = {}
+        for name, argv, max_iters in (
+                ("rollout_stagewise_h512",
+                 ("--backend", "stagewise", "--horizon", H_LONG, "--steps",
+                  10), stagewise_mpc_config(H_LONG).max_iters),
+                ("rollout_robust_w_stagewise",
+                 ("--robust-w", "0.002,0.005", "--backend", "stagewise",
+                  "--horizon", 128, "--steps", 20, "--jit"),
+                 stagewise_mpc_config(128).max_iters),
+                ("rollout_robust_w_auto",
+                 ("--robust-w", "0.002,0.005", "--steps", 20),
+                 MPC_CONFIG.max_iters)):
+            rc, out_l, err = run_cli("rollout", *argv)
+            line = json.loads(out_l.strip().splitlines()[-1]) if rc == 0 \
+                else {}
+            lines_sw[name] = line
+            require(rc == 0 and line.get("iters_max", max_iters) < max_iters
+                    and np.isfinite(line.get("final_state_norm", np.nan)),
+                    f"cli {name}: {rc} {out_l} {err}")
+        require(lines_sw["rollout_stagewise_h512"]["backend"] == "stagewise"
+                and lines_sw["rollout_robust_w_auto"]["robust_w"]
+                == "0.002,0.005", f"cli stage-wise lines: {lines_sw}")
+        # a long-horizon spec request reaches the stage-wise backend
+        rc, out_s5, err = run_cli(
+            "serve", "--y0", "0.01", "--no-strict", "--accel-every", 8,
+            "--check-every", 16, "--erc", "1e-3", "--eac", "1e-3", "--eaj",
+            "1e-2", "--erj", "1e-3", "--max-iters", 5000,
+            stdin=json.dumps({"spec": {"plant": "double_integrator",
+                                       "horizon": H_LONG},
+                              "x": [2.0, 0.0]}) + "\n")
+        reply = json.loads(out_s5.strip().splitlines()[-1]) if rc == 0 \
+            else {}
+        require(rc == 0 and reply.get("converged") == 1
+                and len(reply.get("U", [[]])[0]) == H_LONG,
+                f"cli serve H=512: {rc} {out_s5[:500]} {err}")
         emit("cli", solve_file=lines, solve_file_cpu=out.strip(),
              card_agrees_with_cpu=agree, bench=bench, rollout_jit=roll,
              serve=[{k: r[k] for k in ("batch", "converged", "iters_max")}
-                    for r in replies], nvidia_smi=smi)
+                    for r in replies], stagewise=lines_sw,
+             serve_h512={k: reply[k] for k in ("converged", "iters_max",
+                                               "u0")}, nvidia_smi=smi)
         require(agree, "cli solve-file on the card disagrees with the CPU")
 
     rows = [

@@ -11,8 +11,11 @@ module names mirror the JAX package's:
 * :mod:`pqp_for_mpc_tpu_torch.routing` — engine routing (``solve_auto``).
 * :mod:`pqp_for_mpc_tpu_torch.ops`     — the CUDA kernels and their plain
   PyTorch versions; ``csrc/`` holds the sources, built at first use.
-* :mod:`pqp_for_mpc_tpu_torch.models`  — plant zoo, condensation and the
+* :mod:`pqp_for_mpc_tpu_torch.models`  — plant zoo, condensation, the
+  stage-wise long-horizon backend, robust tightening and the
   receding-horizon controller.
+* :mod:`pqp_for_mpc_tpu_torch.diff`    — ``solve_qp_implicit``, gradients
+  through the solution (a ``torch.autograd.Function``).
 * :mod:`pqp_for_mpc_tpu_torch.convert` — problem data across from the JAX
   package as NumPy arrays.
 
@@ -29,6 +32,7 @@ from pqp_for_mpc_tpu_torch.dual import (  # noqa: F401
 from pqp_for_mpc_tpu_torch.solver import (  # noqa: F401
     SolveResult, solve, solve_batched, solve_mixed)
 from pqp_for_mpc_tpu_torch.routing import route_solve, solve_auto  # noqa: F401
+from pqp_for_mpc_tpu_torch.diff import solve_qp_implicit  # noqa: F401
 from pqp_for_mpc_tpu_torch.ops.distinct_kernel import (  # noqa: F401
     solve_fused_distinct)
 from pqp_for_mpc_tpu_torch.ops.distinct_tiled_kernel import (  # noqa: F401

@@ -17,15 +17,17 @@ flags, defaults, printed lines and JSON keys:
 * ``bench-example``    — certified example-sized solves/s, the North-star
   metric (:mod:`pqp_for_mpc_tpu_torch.bench`, the twin of ``bench.py``).
 * ``rollout``          — receding-horizon closed loop on a model-zoo plant
-  (condensed backend; ``--jit`` runs ``MPCController.rollout_jit``).
+  (condensed or stage-wise backend, ``--backend``; ``--robust-w`` tightens
+  the bounds into a robust tube; ``--jit`` runs
+  ``MPCController.rollout_jit``).
 * ``serve``            — the JSON-lines solver daemon.
 
 Additions: ``--device`` (default ``cuda``; without a card that raises,
 ``problem.resolve_device``); ``bench-example`` takes the flags of the
 port's ``bench`` (``--device``, ``--batch``, ``--repeats``, ``--seed``)
 where the JAX one takes none.  Not ported yet, each exiting with code 1
-and naming its ROADMAP item: ``estimate`` and ``rollout --robust-w /
---offset-free / --backend stagewise`` (the stage-wise family, item 10).
+and naming its ROADMAP item: ``estimate`` and ``rollout --offset-free``
+(the estimators and the offset-free controller, item 10).
 """
 
 from __future__ import annotations
@@ -41,10 +43,6 @@ import torch
 #: what the unported subcommands and flags print before exiting with 1
 _NOT_PORTED = {
     "estimate": "estimate needs the state estimators, not ported yet "
-                "(ROADMAP queue 1, item 10)",
-    "stagewise": "the stage-wise backend is not ported yet (ROADMAP queue "
-                 "1, item 10)",
-    "robust_w": "rollout --robust-w needs models/robust.py, not ported yet "
                 "(ROADMAP queue 1, item 10)",
     "offset_free": "rollout --offset-free needs the offset-free controller, "
                    "not ported yet (ROADMAP queue 1, item 10)",
@@ -252,12 +250,14 @@ _ROLLOUT_PLANTS = ("double_integrator", "mass_spring_damper", "thermal_rc",
                    "dc_motor", "aircraft_pitch", "quadruple_tank")
 
 
+def _csv_floats(s):
+    return np.asarray([float(v) for v in s.split(",")], np.float32)
+
+
 def cmd_rollout(args) -> int:
     from pqp_for_mpc_tpu_torch.models import (ZOO, MPCController, MPCSpec,
-                                              auto_backend)
+                                              auto_backend, robust_spec)
 
-    if args.robust_w is not None:
-        return _not_ported("robust_w")
     if args.offset_free is not None:
         return _not_ported("offset_free")
     plant = ZOO[args.plant]()
@@ -275,16 +275,26 @@ def cmd_rollout(args) -> int:
         y_max=None if y_bound is None
         else np.full(ny, y_bound, np.float32),
         moves=args.moves)
+    if args.robust_w is not None:
+        # tube tightening: per-stage bound schedules from the box supports
+        # of |w_i| <= robust_w_i (models/robust.py)
+        w_box = _csv_floats(args.robust_w)
+        if w_box.shape != (plant.n_state,):
+            print(f"--robust-w needs {plant.n_state} comma-separated "
+                  f"state-noise half-widths, got {w_box.shape[0]}",
+                  file=sys.stderr)
+            return 1
+        spec = robust_spec(spec, w_box)
     backend = args.backend
     if backend == "auto":
         backend = auto_backend(spec)
-    if backend == "stagewise":
-        return _not_ported("stagewise")
     device = _device(args)
     rng = np.random.default_rng(args.seed)
     x0 = rng.uniform(-1, 1, plant.n_state).astype(np.float32)
-    ctrl = MPCController(spec, backend=backend, warm_start=True,
-                         retry_cold=args.retry_cold, device=device)
+    ctrl = MPCController(
+        spec, backend=backend,
+        warm_start="shift" if backend == "stagewise" else True,
+        retry_cold=args.retry_cold, device=device)
     if args.jit:
         ctrl.rollout_jit(x0, steps=args.steps)   # warm-up (kernel build)
         _sync(device)
@@ -511,8 +521,9 @@ def main(argv=None) -> int:
     p.add_argument("--backend", choices=("auto", "condensed", "stagewise"),
                    default="auto",
                    help="condensed = dense dual (the reference's "
-                        "formulation); stagewise = not ported yet; auto = "
-                        "pick by the n_con crossover (models.auto_backend)")
+                        "formulation); stagewise = matrix-free O(H) "
+                        "(long horizons); auto = pick by the n_con "
+                        "crossover (models.auto_backend)")
     p.add_argument("--retry-cold", action="store_true",
                    help="certify-or-recover: re-solve any step whose "
                         "warm start fails certification from the cold "
@@ -530,7 +541,10 @@ def main(argv=None) -> int:
                         "the horizon — the dual shrinks from 4*H*nu to "
                         "4*MOVES*nu rows")
     p.add_argument("--robust-w", default=None, metavar="W1,W2,...",
-                   help="robust tube tightening (not ported yet)")
+                   help="robust tube tightening: per-state additive "
+                        "disturbance half-widths |w_i| <= W_i; bounds "
+                        "tightened by the LQR tube's margins "
+                        "(models.robust_spec)")
     p.add_argument("--offset-free", choices=("input", "output"),
                    default=None,
                    help="output-feedback offset-free loop (not ported yet)")

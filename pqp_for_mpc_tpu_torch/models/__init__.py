@@ -18,5 +18,21 @@ from pqp_for_mpc_tpu_torch.models.mpc import (  # noqa: F401
     condense,
     condensed_n_con,
     dare_terminal_weight,
+    input_constraints,
     move_schedule,
+    prediction_matrices,
+)
+from pqp_for_mpc_tpu_torch.models.stagewise import (  # noqa: F401
+    StagewiseDual,
+    StagewiseFactor,
+    kkt_solve,
+    relinearize,
+    riccati_factor,
+    solve_stagewise,
+    stagewise_dual,
+)
+from pqp_for_mpc_tpu_torch.models.robust import (  # noqa: F401
+    lqr_gain,
+    robust_spec,
+    tube_margins,
 )

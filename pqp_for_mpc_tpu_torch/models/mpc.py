@@ -1,9 +1,9 @@
 """Condensed-MPC problem construction and the receding-horizon loop.
 
-The PyTorch counterpart of ``pqp_for_mpc_tpu/models/mpc.py`` for the
-condensed backend.  Given a :class:`LinearPlant`, a horizon and cost and
-constraint specs, :func:`condense` produces a :class:`CondensedMPCData`
-with the reference's block semantics — ``assemble(x, D)`` reproduces
+The PyTorch counterpart of ``pqp_for_mpc_tpu/models/mpc.py``.  Given a
+:class:`LinearPlant`, a horizon and cost and constraint specs,
+:func:`condense` produces a :class:`CondensedMPCData` with the reference's
+block semantics — ``assemble(x, D)`` reproduces
 
     Fp = Fp1 D + Fp2 x - Fp3                          (PQP_CPU.c:373-382)
     Mp = 1/2 (x'Mp1 x + D'Mp2 x + Mp4.x
@@ -18,10 +18,14 @@ with box input bounds and slew-rate bounds contributing the reference's
 
 The build is the JAX package's float64 NumPy host build, copied; only the
 final cast differs (float32 tensors on a given device).
-:class:`MPCController` runs the receding-horizon loop through
-:func:`~pqp_for_mpc_tpu_torch.routing.solve_auto`: ``rollout`` propagates
-the plant on the host, ``rollout_jit`` keeps the whole loop on the
-controller's device.  The stage-wise backend is a later slice of the port.
+:func:`prediction_matrices` and :func:`input_constraints` are the public
+float32 tensor builders.  :class:`MPCController` runs the receding-horizon
+loop on one of two backends: ``"condensed"`` through
+:func:`~pqp_for_mpc_tpu_torch.routing.solve_auto`, ``"stagewise"`` through
+:func:`~pqp_for_mpc_tpu_torch.models.stagewise.solve_stagewise` (O(H)
+memory, for long horizons; ``"auto"`` picks by :func:`auto_backend`).
+``rollout`` propagates the plant on the host, ``rollout_jit`` keeps the
+whole loop on the controller's device.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ import torch
 from pqp_for_mpc_tpu_torch.config import SolverConfig
 from pqp_for_mpc_tpu_torch.dual import dual_geometry, dualize_forcing
 from pqp_for_mpc_tpu_torch.models.plants import LinearPlant
+from pqp_for_mpc_tpu_torch.models.stagewise import (solve_stagewise,
+                                                    stagewise_dual)
 from pqp_for_mpc_tpu_torch.problem import CondensedMPCData, resolve_device
 from pqp_for_mpc_tpu_torch.routing import solve_auto
 
@@ -102,6 +108,84 @@ def _bound_flat(v, H: int, nu: int) -> np.ndarray:
                              f"({H}, {nu})")
         return a.reshape(-1)
     return np.tile(a, H)
+
+
+def prediction_matrices(plant: LinearPlant, H: int, device=None):
+    """Stacked prediction:  X = Sx x0 + Su U + Sd Dseq  for x_1..x_H, as
+    float32 tensors on ``device`` (default CUDA, ``resolve_device``).
+
+    Sx: (H*ns, ns); Su: (H*ns, H*nu) block lower-triangular with blocks
+    ``Phi(i, j+1) B_j`` (``Phi(a, b) = A_{a-1} ... A_b``, = A^{i-j-1} B for
+    LTI); Sd likewise with E.  Accepts an LTI :class:`LinearPlant` or an
+    :class:`~pqp_for_mpc_tpu_torch.models.plants.LTVPlant`.  Row i carries
+    the previous row's blocks forward through one batched ``A_i @ .`` and
+    inserts ``B_i``/``E_i`` on the diagonal (the JAX package's scan, as a
+    loop over stages); :func:`condense` keeps its float64 host build."""
+    dev = resolve_device(device)
+    ltv = np.asarray(plant.A).ndim == 3
+    ns, nu, nd = plant.n_state, plant.n_input, plant.n_dist
+    t = lambda m: torch.as_tensor(np.asarray(m, np.float32), device=dev)
+    A, B, E = t(plant.A), t(plant.B), t(plant.E)
+    if ltv and A.shape[0] != H:
+        raise ValueError(f"LTV plant horizon {A.shape[0]} != {H}")
+    if not ltv:     # LTI = constant stacks through the same recurrence
+        A = A.expand(H, ns, ns)
+        B = B.expand(H, ns, nu)
+        E = E.expand(H, ns, nd)
+    sx = torch.eye(ns, dtype=torch.float32, device=dev)
+    su = torch.zeros((H, ns, nu), dtype=torch.float32, device=dev)
+    sd = torch.zeros((H, ns, nd), dtype=torch.float32, device=dev)
+    Sx_s, Su_s, Sd_s = [], [], []
+    for i in range(H):
+        # su[j] = Phi(i+1, j+1) B_j for j <= i (zero for j > i)
+        sx = A[i] @ sx
+        su = A[i] @ su
+        sd = A[i] @ sd
+        su[i] = B[i]
+        sd[i] = E[i]
+        Sx_s.append(sx)
+        Su_s.append(su)
+        Sd_s.append(sd)
+    Sx = torch.stack(Sx_s).reshape(H * ns, ns)
+    # stacked (i, j, ns, *) -> block matrix (i, ns, j, *)
+    Su = torch.stack(Su_s).permute(0, 2, 1, 3).reshape(H * ns, H * nu)
+    Sd = torch.stack(Sd_s).permute(0, 2, 1, 3).reshape(H * ns, H * nd)
+    return Sx, Su, Sd
+
+
+def input_constraints(spec: MPCSpec, device=None):
+    """Box + slew-rate rows:  Gp U <= Kp,  N = 4*H*nu rows, as float32
+    tensors on ``device`` (default CUDA).
+
+    Layout: [U <= umax; -U <= -umin; T U <= dumax + e1 uprev;
+    -T U <= dumax - e1 uprev] with T the first-difference operator
+    (u_0 - u_prev, u_1 - u_0, ...).  Bounds are constant ``(nu,)`` or
+    per-stage ``(H, nu)``; the sums are float32 sums of float32 values, as
+    in the JAX package (``condense`` uses the float64 host twin)."""
+    dev = resolve_device(device)
+    H, nu = spec.horizon, spec.plant.n_input
+    M = H * nu
+    I = torch.eye(M, dtype=torch.float32, device=dev)
+    T = I - torch.diag(torch.ones(M - nu, dtype=torch.float32, device=dev),
+                       -nu)
+    Gp = torch.cat([I, -I, T, -T], dim=0)                        # (4M, M)
+
+    def flat(v):
+        a = np.asarray(v, np.float32)
+        if a.ndim == 2 and a.shape != (H, nu):
+            raise ValueError(f"per-stage bound shape {a.shape} != "
+                             f"({H}, {nu})")
+        return torch.as_tensor(a.reshape(-1) if a.ndim == 2
+                               else np.tile(a, H), device=dev)
+
+    umax, umin, dmax = flat(spec.u_max), flat(spec.u_min), flat(spec.du_max)
+    uprev = np.zeros(nu, np.float32) if spec.u_prev is None else \
+        np.asarray(spec.u_prev, np.float32)
+    e1u = torch.as_tensor(np.concatenate([uprev, np.zeros(M - nu,
+                                                          np.float32)]),
+                          device=dev)
+    Kp = torch.cat([umax, -umin, dmax + e1u, dmax - e1u])        # (4M,)
+    return Gp, Kp
 
 
 def _prediction_matrices_f64(plant: LinearPlant, H: int):
@@ -435,8 +519,8 @@ def _condense(spec: MPCSpec, device) -> CondensedMPCData:
 
 #: auto_backend's condensed->stage-wise crossover, as the CONDENSED dual
 #: dimension n_con — the JAX package's value, measured there on a TPU
-#: (its models/mpc.py); not yet measured for this port (ROADMAP queue 2,
-#: open cells).
+#: (its models/mpc.py); the H100's reading is recorded in PERF.md and not
+#: acted on yet (ROADMAP queue 1, item 5).
 _AUTO_BACKEND_NCON = 1536
 
 
@@ -474,14 +558,17 @@ def auto_backend(spec: MPCSpec) -> str:
 
 
 class MPCController:
-    """Receding-horizon controller around the batched PQP solver
-    (condensed backend).
+    """Receding-horizon controller around the batched PQP solver.
 
     Warm starting carries the dual iterate Y* between consecutive solves:
     consecutive QPs differ only in (x, u_prev), so the previous multipliers
-    are a near-optimal initialization.  ``device`` is where the condensed
-    blocks and every solve live (default: CUDA; without a card that
-    raises — pass ``device="cpu"``).
+    are a near-optimal initialization.  ``backend``: ``"condensed"`` (dense
+    dual, the reference's formulation), ``"stagewise"`` (matrix-free O(H),
+    :mod:`~pqp_for_mpc_tpu_torch.models.stagewise`, for long horizons; its
+    default cfg is ``stagewise_mpc_config(H)``) or ``"auto"``
+    (:func:`auto_backend`).  ``device`` is where the problem data and every
+    solve live (default: CUDA; without a card that raises — pass
+    ``device="cpu"``).
     """
 
     def __init__(self, spec: MPCSpec, cfg: Optional[SolverConfig] = None,
@@ -495,25 +582,29 @@ class MPCController:
         # AND advance them one control stage — see _shift_multipliers)
         # retry_cold: any step that fails the four-part certification is
         # re-solved once from the cold start (solver.retry_cold_solve).
-        from pqp_for_mpc_tpu_torch.config import MPC_CONFIG
+        from pqp_for_mpc_tpu_torch.config import (MPC_CONFIG,
+                                                  stagewise_mpc_config)
         if backend == "auto":
             backend = auto_backend(spec)
-        if backend == "stagewise":
-            raise NotImplementedError(
-                "the stage-wise backend is not ported yet (ROADMAP queue 1, "
-                "item 10)")
-        if backend != "condensed":
+        if backend not in ("condensed", "stagewise"):
             raise ValueError(f"unknown backend {backend!r}")
         self._n_moves = None
         if spec.moves is not None:
+            if backend == "stagewise":
+                raise NotImplementedError(
+                    "move blocking is a condensed-backend device (the "
+                    "stage-wise path is already O(H) per iteration and "
+                    "blocking would break its Riccati structure)")
             self._n_moves = len(move_schedule(spec.moves, spec.horizon))
         self._Hv = self._n_moves or spec.horizon
         if cfg is None:
             # MPC_CONFIG's small cold start (y0=0.01) matters: the
             # multiplicative update grows Y fast but decays it slowly, so
             # the reference's Y0=1000 (PQP_CPU.c:710) is catastrophic on
-            # a typical MPC QP
-            cfg = MPC_CONFIG
+            # a typical MPC QP; the stage-wise default lifts the
+            # tolerances to the horizon's float32 certification floor
+            cfg = (stagewise_mpc_config(spec.horizon)
+                   if backend == "stagewise" else MPC_CONFIG)
         self.device = resolve_device(device)
         self.spec = spec
         self.warm_start = warm_start
@@ -528,25 +619,37 @@ class MPCController:
         self.retry_cold = retry_cold
         self._u_base = self._as_f32(np.zeros(spec.plant.n_input)
                                     if spec.u_prev is None else spec.u_prev)
-        self.data = condense(spec, device=self.device)
-        self.Qp = self.data.qp()    # exactly-built, never re-inverted
-        # instance-invariant dual geometry, computed once; per-step solves
-        # only rebuild the forcing
-        self._geom = dual_geometry(self.data.Gp, self.data.Qp_inv,
-                                   theta_floor=self.cfg.theta_floor,
-                                   precision=self.cfg.precision)
+        if backend == "stagewise":
+            # matrix-free geometry; the O((H*nu)^2) condensed blocks are
+            # never built
+            self._sd = stagewise_dual(spec, theta_floor=self.cfg.theta_floor,
+                                      device=self.device)
+            self.data = self.Qp = self._geom = None
+        else:
+            self.data = condense(spec, device=self.device)
+            self.Qp = self.data.qp()    # exactly-built, never re-inverted
+            # instance-invariant dual geometry, computed once; per-step
+            # solves only rebuild the forcing
+            self._geom = dual_geometry(self.data.Gp, self.data.Qp_inv,
+                                       theta_floor=self.cfg.theta_floor,
+                                       precision=self.cfg.precision)
         self._Y = None
         # (steps, preview?, w_seq?) -> rollout_jit's trajectory buffers
         self._rollout_fns = {}
+
+    @property
+    def n_con(self) -> int:
+        """Rows of the dual the controller solves."""
+        return self._sd.n_con if self.data is None else self.data.n_con
 
     def reset(self):
         self._Y = None
 
     def _shift_multipliers(self, Y):
         """Shift each stage-structured multiplier block one control step
-        forward (last stage repeated).  Row layout: four (H, nu) input
-        blocks, then two (H, ny) output blocks when present (four when
-        softened)."""
+        forward (last stage repeated).  Row layout (both backends): four
+        (H, nu) input blocks, then two (H, ny) output blocks when output
+        bounds are present (four when softened)."""
         spec = self.spec
         H, nu = spec.horizon, spec.plant.n_input
         ny = spec.plant.n_output
@@ -561,7 +664,9 @@ class MPCController:
         for _ in range(4):
             segs.append(shift_block(Y2[off:off + Hi * nu], Hi, nu))
             off += Hi * nu
-        if self.data.Kx is not None:
+        has_out = (self.data.Kx is not None) if self.data is not None \
+            else (spec.y_min is not None or spec.y_max is not None)
+        if has_out:
             n_blocks = 4 if spec.soft_penalty is not None else 2
             for _ in range(n_blocks):
                 segs.append(shift_block(Y2[off:off + H * ny], H, ny))
@@ -569,9 +674,24 @@ class MPCController:
         out = torch.cat(segs, dim=0)
         return out if Y.dim() == 2 else out[:, 0]
 
+    def _warm_start(self, B: int):
+        """The next solve's ``Y0`` from the carried multipliers (shifted
+        under ``warm_start="shift"``, floored), or None: no carry yet, or
+        the batch size changed since the last step (cold start)."""
+        if not self.warm_start or self._Y is None:
+            return None
+        Yw = self._Y
+        if self.warm_start == "shift":
+            Yw = self._shift_multipliers(Yw)
+        if Yw.shape[1] in (B, 1):
+            return torch.clamp(Yw, min=self.warm_start_floor)
+        return None
+
     def step(self, x, d_seq=None, u_prev=None):
         """Solve one MPC QP; returns (u0, SolveResult).  ``x`` may be
         batched ``(ns, B)`` for scenario fan-outs."""
+        if self.backend == "stagewise":
+            return self._step_stagewise(x, d_seq, u_prev)
         H, nu = self.spec.horizon, self.spec.plant.n_input
         nd = self.spec.plant.n_dist
         D = (torch.zeros(H * nd, dtype=torch.float32, device=self.device)
@@ -581,17 +701,33 @@ class MPCController:
         primal = data.assemble(x=self._as_f32(x), D=D, Qp=self.Qp)
         dual = dualize_forcing(self._geom, primal.Fp, primal.Mp, primal.Kp,
                                precision=self.cfg.precision)
-        Y0 = None
-        if self.warm_start and self._Y is not None:
-            B = primal.Fp.shape[1] if primal.Fp.dim() == 2 else 1
-            Yw = self._Y
-            if self.warm_start == "shift":
-                Yw = self._shift_multipliers(Yw)
-            if Yw.shape[1] == B or Yw.shape[1] == 1:
-                Y0 = torch.clamp(Yw, min=self.warm_start_floor)
-            # else: batch size changed since last step — cold start
+        Y0 = self._warm_start(primal.Fp.shape[1]
+                              if primal.Fp.dim() == 2 else 1)
         res = solve_auto(primal, dual, Y0=Y0, cfg=self.cfg,
                          retry_cold=self.retry_cold and Y0 is not None)
+        if self.warm_start:
+            self._Y = res.Y
+        u0 = res.U[:nu]
+        return u0, res
+
+    def _step_stagewise(self, x, d_seq=None, u_prev=None):
+        """Matrix-free :meth:`step`: same warm-start and shift semantics,
+        the solve runs
+        :func:`~pqp_for_mpc_tpu_torch.models.stagewise.solve_stagewise`."""
+        spec = self.spec
+        nu, nd = spec.plant.n_input, spec.plant.n_dist
+        x2 = self._as_f32(x)
+        x2 = x2 if x2.dim() == 2 else x2[:, None]
+        B = x2.shape[1]
+        dseq = None
+        if d_seq is not None:
+            dseq = self._as_f32(d_seq).reshape(spec.horizon, nd)[..., None]
+            dseq = dseq.expand(spec.horizon, nd, B)
+        sd = (self._sd if u_prev is None
+              else self._sd_with_uprev(self._as_f32(u_prev)))
+        Y0 = self._warm_start(B)
+        res = solve_stagewise(sd, x2, dseq=dseq, Y0=Y0, cfg=self.cfg,
+                              retry_cold=self.retry_cold and Y0 is not None)
         if self.warm_start:
             self._Y = res.Y
         u0 = res.U[:nu]
@@ -611,6 +747,18 @@ class MPCController:
         Kp[3 * M:4 * M] -= e1u
         return dataclasses.replace(self.data, Kp=Kp)
 
+    def _sd_with_uprev(self, u_prev: torch.Tensor):
+        """The stage-wise dual with the stage-0 slew bounds moved to
+        ``u_prev`` (additive delta from the build-time base, as
+        :meth:`_data_with_uprev`); the stored anchor ``u_prev`` follows the
+        rewritten rows (``relinearize`` reads it)."""
+        up = u_prev.reshape(-1)
+        delta = up - self._u_base
+        Kp = self._sd.Kp.clone()
+        Kp[2, 0] += delta
+        Kp[3, 0] -= delta
+        return dataclasses.replace(self._sd, Kp=Kp, u_prev=up)
+
     def _as_f32(self, a) -> torch.Tensor:
         """``a`` (array-like or tensor) as float32 on the controller's
         device."""
@@ -626,10 +774,31 @@ class MPCController:
                 "closed-loop rollout needs an LTI plant; for LTV loops "
                 "call step() per control step")
 
+    def _solve_window(self, x, u_prev, win, Y):
+        """One step of :meth:`rollout_jit` on the controller's backend: the
+        QP of state ``x`` with the slew rows at ``u_prev`` and preview
+        window ``win`` ((H, nd) or None), warm from ``Y``."""
+        Y0 = torch.clamp(Y, min=self.warm_start_floor)
+        if self.backend == "stagewise":
+            return solve_stagewise(
+                self._sd_with_uprev(u_prev), x[:, None],
+                dseq=None if win is None else win[..., None], Y0=Y0,
+                cfg=self.cfg, retry_cold=self.retry_cold)
+        H, nd = self.spec.horizon, self.spec.plant.n_dist
+        D = (torch.zeros(H * nd, dtype=torch.float32, device=self.device)
+             if win is None else win.reshape(-1))
+        primal = self._data_with_uprev(u_prev).assemble(x=x, D=D,
+                                                        Qp=self.Qp)
+        dual = dualize_forcing(self._geom, primal.Fp, primal.Mp, primal.Kp,
+                               precision=self.cfg.precision)
+        return solve_auto(primal, dual, Y0=Y0, cfg=self.cfg,
+                          retry_cold=self.retry_cold)
+
     def rollout_jit(self, x0, steps: int, d_forecast=None, w_seq=None):
         """The closed loop kept on the controller's device: per step the
-        slew-row ``Kp`` update, ``assemble``, ``dualize_forcing``,
-        ``solve_auto`` (warm, ``retry_cold`` honoured) and
+        slew-row ``Kp`` update, the solve of the controller's backend
+        (condensed: ``assemble``, ``dualize_forcing``, ``solve_auto``;
+        stage-wise: ``solve_stagewise``; warm, ``retry_cold`` honoured) and
         ``x+ = A x + B u0 (+ E d + w)`` in float32, the trajectories written
         into buffers preallocated on the device and brought to the host
         once at the end.  The JAX package compiles this loop into one
@@ -674,21 +843,13 @@ class MPCController:
                    + torch.arange(H, device=dev)[None, :])
             wins = df[idx]
         A, Bm, Em = (self._as_f32(m) for m in (plant.A, plant.B, plant.E))
-        D0 = torch.zeros(H * nd, dtype=f32, device=dev)
-        Y_cold = torch.full((self.data.n_con, 1), cfg.y0, dtype=f32,
-                            device=dev)
+        Y_cold = torch.full((self.n_con, 1), cfg.y0, dtype=f32, device=dev)
         x = self._as_f32(x0).reshape(ns)
         u_prev = torch.zeros(nu, dtype=f32, device=dev)
         Y = Y_cold
         for t in range(steps):
             win = None if wins is None else wins[t]
-            primal = self._data_with_uprev(u_prev).assemble(
-                x=x, D=D0 if win is None else win.reshape(-1), Qp=self.Qp)
-            dual = dualize_forcing(self._geom, primal.Fp, primal.Mp,
-                                   primal.Kp, precision=cfg.precision)
-            res = solve_auto(primal, dual,
-                             Y0=torch.clamp(Y, min=self.warm_start_floor),
-                             cfg=cfg, retry_cold=self.retry_cold)
+            res = self._solve_window(x, u_prev, win, Y)
             u0 = res.U[:nu, 0]
             xn = A @ x + Bm @ u0
             if win is not None:

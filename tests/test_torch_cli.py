@@ -224,6 +224,55 @@ def test_rollout_moves_and_y_max(capsys):
     assert out["moves"] == 4 and out["backend"] == "condensed"
 
 
+@pytest.mark.parametrize("argv", [
+    ["rollout", "--backend", "stagewise", "--horizon", "32", "--steps", "5"],
+    ["rollout", "--robust-w", "0.002,0.005", "--steps", "5"],
+    ["rollout", "--robust-w", "0.002,0.005", "--backend", "stagewise",
+     "--horizon", "64", "--steps", "5", "--jit"],
+], ids=["stagewise", "robust_w", "robust_w_stagewise_jit"])
+def test_rollout_stagewise_and_robust_match_jax(capsys, argv):
+    """The stage-wise backend (warm_start="shift", as the JAX CLI) and the
+    robust tube print the JAX CLI's line: its keys, the same backend and
+    flags, the final state within 1e-3 and mean iterations within 10%."""
+    assert jmain(argv) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert tmain(argv + CPU) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(got) == set(want)
+    for k in ("plant", "horizon", "steps", "backend", "moves", "robust_w"):
+        assert got[k] == want[k], k
+    assert abs(got["final_state_norm"] - want["final_state_norm"]) <= 1e-3
+    assert abs(got["iters_mean"] - want["iters_mean"]) \
+        <= 0.1 * want["iters_mean"]
+
+
+def test_rollout_auto_past_the_line_and_bad_robust_w(capsys):
+    """backend auto picks the stage-wise backend at H=384 (n_con = 1536);
+    a --robust-w of the wrong length exits 1 naming the state count."""
+    assert tmain(["rollout", "--horizon", "384", "--steps", "2"] + CPU) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["backend"] == "stagewise" and out["steps"] == 2
+    assert tmain(["rollout", "--robust-w", "0.1"] + CPU) == 1
+    assert "2 comma-separated" in capsys.readouterr().err
+
+
+def test_serve_long_horizon_spec_request(monkeypatch, capsys):
+    """A spec request past the n_con line reaches the stage-wise backend
+    through backend="auto" and answers like the JAX daemon."""
+    requests = [{"spec": {"plant": "double_integrator", "horizon": 400},
+                 "x": [2.0, 0.0]}, {"cmd": "quit"}]
+    argv = ["serve", "--y0", "0.01", "--no-strict", "--accel-every", "8",
+            "--check-every", "16", "--erc", "1e-3", "--eac", "1e-3",
+            "--eaj", "1e-2", "--erj", "1e-3", "--max-iters", "5000"]
+    want = _serve(jmain, argv, requests, monkeypatch, capsys)
+    got = _serve(tmain, argv + CPU, requests, monkeypatch, capsys)
+    assert len(got) == len(want) == 1 and "error" not in got[0]
+    assert set(got[0]) == set(want[0])
+    assert got[0]["converged"] == want[0]["converged"] == 1
+    assert len(got[0]["U"][0]) == 400
+    np.testing.assert_allclose(got[0]["u0"], want[0]["u0"], atol=5e-3)
+
+
 def test_bench_tiny(capsys):
     argv = ["bench", "--M", "6", "--N", "20", "--iters", "5", "--batch", "8",
             "--repeats", "1"]
@@ -264,8 +313,6 @@ def test_bench_example_needs_a_card_by_default():
 
 @pytest.mark.parametrize("argv,item", [
     (["estimate", "--kind", "kf"], "item 10"),
-    (["rollout", "--backend", "stagewise"], "item 10"),
-    (["rollout", "--robust-w", "0.1,0.1"], "item 10"),
     (["rollout", "--offset-free", "input"], "item 10"),
 ])
 def test_unported_commands_exit_1_naming_their_item(capsys, argv, item):

@@ -104,8 +104,15 @@ def test_scenario_fan_out_with_shifted_warm_start_matches_jax():
 
 def test_controller_refuses_what_is_not_ported():
     spec = _loop_spec(TSpec)
-    with pytest.raises(NotImplementedError, match="stage-wise"):
-        MPCController(spec, backend="stagewise", device="cpu")
+    # the stage-wise backend is ported (tests/test_torch_stagewise*.py);
+    # move blocking on it is refused, as in the JAX package
+    with pytest.raises(NotImplementedError, match="move blocking"):
+        MPCController(dataclasses.replace(spec, moves=4),
+                      backend="stagewise", device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        MPCController(spec, backend="sparse", device="cpu")
+    assert MPCController(spec, backend="stagewise",
+                         device="cpu").data is None
     ctrl = MPCController(spec, device="cpu")
     # the device-resident closed loop is ported (tests/test_torch_rollout.py)
     out = ctrl.rollout_jit([2.0, 0.0], 5)
