@@ -53,13 +53,32 @@ at full size and times them:
   ``solve_qp_implicit`` on ``examples/differentiable_mpc.py``'s problem
   (the card's gradient against the CPU's, the example's tuning loop, a
   ``torch.func.vmap`` batch of 256 against one at a time);
+* state estimation and offset-free control (no hand-written kernel lies
+  on these paths either, as in the JAX package: every kernel counter is
+  read before and after the group and must not move), each at its JAX
+  example's or test's settings: the production stack of
+  ``examples/production_mpc.py`` (robust tightening, offset-free estimation
+  and targets, a disturbance preview, ``retry_cold``; 80 steps, every step
+  certified, the original bound y <= 1 held, the offset within
+  ``tests/test_composition.py``'s tolerance), offset-free control on the
+  stage-wise backend at H = 512 (30 steps), the moving-horizon estimator on
+  the CLI's one-sided quadruple-tank record (400 steps, windows 10 and 40,
+  every window certified, every state's RMSE below the Kalman filter's,
+  the JAX package's CPU readings beside), the relinearizing MHE on the
+  hanging pendulum (window 8, against the origin-linearized filter), RTI
+  on ``examples/nonlinear_mpc.py``'s pendulum (H = 20, 60 steps, swung up
+  and stabilized) and ``examples/output_feedback_nonlinear_mpc.py`` (H =
+  24, N = 8, 60 steps), each with ms per step, iterations and peak device
+  memory;
 * the command line, as subprocesses of ``python -m pqp_for_mpc_tpu_torch``:
   ``generate``, ``solve-file`` (engines auto, fused and mixed; the auto
   line held against the same command on the CPU), ``bench`` (riding K2),
   ``bench-example`` (the North-star line, held to the K1 route's rate
   within 10%), ``rollout --jit``, ``rollout --backend stagewise`` at
   H = 512, ``rollout --robust-w`` on both backends and ``serve`` (an
-  H = 512 spec request among them).
+  H = 512 spec request among them); and, all four at once, ``estimate
+  --kind kf``, ``estimate --kind mhe --simulate 400 --one-sided`` and
+  ``rollout --offset-free`` input and output.
 
 Each kernel is held against its plain version at the shapes its path gives
 it.  The ``launches`` of the kernel table are those of ONE call of each
@@ -171,6 +190,23 @@ B_FAN, CROSS_H, CROSS_STEPS = 1024, (64, 128, 256, 384), 10
 #: readings (PERF.md), the JAX package's 2e-3 bar between its backends
 #: (tests/test_stagewise.py, H=12) up to H=128
 CROSS_TOL = {64: 2e-3, 128: 2e-3, 256: 5e-3, 384: 1e-2}
+#: the estimation group's drives, each at its JAX example's or test's
+#: settings: the production stack (examples/production_mpc.py: 80 steps),
+#: offset-free on the stage-wise backend at H = 512 (30 steps), the MHE
+#: record (the CLI's `estimate --plant quadruple_tank --simulate 400
+#: --one-sided`, windows 10 and 40), the relinearizing MHE on the pendulum
+#: (window 8), RTI (examples/nonlinear_mpc.py: H = 20, 60 steps) and output
+#: feedback (examples/output_feedback_nonlinear_mpc.py: H = 24, N = 8, 60
+#: steps)
+PROD_STEPS, OF_H, OF_STEPS = 80, 512, 30
+MHE_T, MHE_WINDOWS, NMHE_WINDOW, NMHE_T = 400, (10, 40), 8, 80
+RTI_H, RTI_STEPS, OFB_H, OFB_N, OFB_STEPS = 20, 60, 24, 8, 60
+#: the JAX package's readings of that MHE record on the CPU (its CLI, the
+#: same command): converged share, mean iterations and RMSE per state —
+#: an algorithmic cross-check, not a gate and not a time
+JAX_MHE = {10: (1.0, 16.9, [0.0080, 0.0080, 0.0290, 0.0637]),
+           40: (1.0, 24.4, [0.0097, 0.0095, 0.0675, 0.0579]),
+           "kf": [0.0103, 0.0105, 0.0846, 0.0954]}
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32 on the
 #: CUDA cores and bf16 on the tensor cores, FLOP/s
@@ -604,10 +640,11 @@ def f64_optimum(spec, x0, y) -> np.ndarray:
     raise AssertionError("the float64 active-set refinement did not end")
 
 
-def stagewise_paths(dev, smi: str) -> None:
+def stagewise_paths(dev, smi: str) -> float:
     """The stage-wise long-horizon backend on the card (no hand-written
     kernel lies on it: every kernel counter stays at 0 over its phases),
-    the condensed/stage-wise crossover and ``solve_qp_implicit``."""
+    the condensed/stage-wise crossover and ``solve_qp_implicit``.  Returns
+    the H=512 closed loop's ms per step."""
     import torch
     from pqp_for_mpc_tpu_torch import SolverConfig, solve_qp_implicit
     from pqp_for_mpc_tpu_torch.config import stagewise_mpc_config
@@ -656,6 +693,7 @@ def stagewise_paths(dev, smi: str) -> None:
          peak_memory_bytes=loop_peak, launches=launches, nvidia_smi=smi)
     require(cert == LONG_STEPS,
             f"H=512 loop certified {cert} of {LONG_STEPS} steps")
+    h512_ms = secs / LONG_STEPS * 1e3
 
     # -- the fan-out: B=1024 states at H=512 (tests/test_stagewise.py's
     #    cfg), with the float64 audit of every certified lane ------------
@@ -855,6 +893,341 @@ def stagewise_paths(dev, smi: str) -> None:
     require(gv.device.type == "cuda" and vmap_err <= vmap_tol
             and card_lane_err <= vmap_tol,
             f"vmap gradients disagree: {vmap_err}, {card_lane_err}")
+    return h512_ms
+
+
+def production_spec():
+    """examples/production_mpc.py's spec: the double integrator with a real
+    disturbance channel (E = [0.005, 0.1]'), H = 20, r = 0.92, |u| <= 3,
+    |du| <= 3, y <= 1, tightened by ``robust_spec`` for 1.3x the box
+    |w| <= [0.003, 0.012]."""
+    from pqp_for_mpc_tpu_torch.models import (LinearPlant, MPCSpec,
+                                              robust_spec)
+    dt = 0.1
+    plant = LinearPlant(A=np.array([[1, dt], [0, 1]], np.float32),
+                        B=np.array([[0.5 * dt * dt], [dt]], np.float32),
+                        E=np.array([[0.005], [0.1]], np.float32),
+                        C=np.array([[1.0, 0.0]], np.float32), name="di_e")
+    spec = MPCSpec(plant=plant, horizon=20, Qy=np.eye(1), R=0.05 * np.eye(1),
+                   r=np.array([0.92]), u_min=-3 * np.ones(1),
+                   u_max=3 * np.ones(1), du_max=3 * np.ones(1),
+                   y_max=np.ones(1))
+    return robust_spec(spec, 1.3 * np.array([0.003, 0.012]))
+
+
+def pendulum(g: float, damping: float, upright: bool):
+    """The examples' pendulum as a torch RK4 step (dt = 0.05): theta'' =
+    +-g sin(theta) - damping omega + u (+ about the upright)."""
+    import torch
+    sign = 1.0 if upright else -1.0
+
+    def f_cont(x, u):
+        return torch.stack([x[1], sign * g * torch.sin(x[0])
+                            - damping * x[1] + u[0]])
+
+    def f_disc(x, u):
+        k1 = f_cont(x, u)
+        k2 = f_cont(x + 0.025 * k1, u)
+        k3 = f_cont(x + 0.025 * k2, u)
+        k4 = f_cont(x + 0.05 * k3, u)
+        return x + (0.05 / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+    return f_disc
+
+
+def pendulum_spec(f_disc, H: int, R: float, du_max: float, dev):
+    """The examples' RTI spec: the first linearization at the origin
+    (torch.func Jacobians), E = I, the angle measured, |u| <= 12."""
+    import torch
+    from pqp_for_mpc_tpu_torch.models import LTVPlant, MPCSpec
+    A, B = (j.cpu().numpy() for j in torch.func.jacrev(f_disc, (0, 1))(
+        torch.zeros(2, device=dev), torch.zeros(1, device=dev)))
+    plant = LTVPlant(A=np.tile(A[None], (H, 1, 1)),
+                     B=np.tile(B[None], (H, 1, 1)),
+                     E=np.tile(np.eye(2, dtype=np.float32)[None], (H, 1, 1)),
+                     C=np.tile(np.array([[[1.0, 0.0]]], np.float32),
+                               (H, 1, 1)), name="pendulum")
+    return MPCSpec(plant=plant, horizon=H, Qy=np.eye(1), R=R * np.eye(1),
+                   r=np.zeros(1), u_min=-12 * np.ones(1),
+                   u_max=12 * np.ones(1), du_max=du_max * np.ones(1))
+
+
+def timed_phase(fn):
+    """(result, seconds, peak device bytes) of one call of ``fn``."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def run_cli_all(argvs, timeout=300):
+    """Run ``python -m pqp_for_mpc_tpu_torch *argv`` for every argv at once
+    from the checkout's root; [(exit code, stdout, stderr)] in order.  Every
+    process is ended before this returns."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "pqp_for_mpc_tpu_torch", *map(str, argv)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
+        env=env) for argv in argvs]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+        return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def estimation_paths(dev, smi: str, mpc_h512_ms=None) -> None:
+    """State estimation and offset-free control on the card (no
+    hand-written kernel lies on these paths, as in the JAX package: the
+    plain ``solve_batched`` and the stage-wise solve; every kernel counter
+    stays at 0 over the group): the production stack, offset-free control
+    on the stage-wise backend at H = 512, the linear and the relinearizing
+    MHE, RTI, output feedback, and the command line's ``estimate`` and
+    ``rollout --offset-free``.  Each phase prints ms per step (or window),
+    its iterations and its peak device memory beside the card's name and
+    power limit."""
+    import torch
+    from pqp_for_mpc_tpu_torch.cli import kf_estimates, simulated_record
+    from pqp_for_mpc_tpu_torch.models import (KalmanFilter, LinearPlant,
+                                              MovingHorizonEstimator,
+                                              NonlinearMHE,
+                                              OffsetFreeController,
+                                              RTIController,
+                                              output_feedback_rollout,
+                                              quadruple_tank, relinearize)
+    t_group = time.perf_counter()
+    zero = {k: 0 for k in kernel_counts()}
+    before = kernel_counts()
+
+    # -- the production stack (examples/production_mpc.py) ---------------
+    steps = PROD_STEPS
+    t = np.arange(steps)
+    w_seq = (np.where((t // 8) % 2 == 0, 1.0, -1.0)[:, None]
+             * np.array([0.003, 0.012])[None, :]).astype(np.float32)
+    d_fc = (0.5 * np.sin(0.15 * np.arange(steps + 20)))[:, None].astype(
+        np.float32)
+    ctrl = OffsetFreeController(production_spec(), kind="input",
+                                retry_cold=True, device=dev)
+    out, secs, peak = timed_phase(lambda: ctrl.rollout_jit(
+        np.zeros(2, np.float32), steps, np.array([0.4], np.float32),
+        w_seq=w_seq, d_forecast=d_fc))
+    y = out["x"][:, 0]
+    row = dict(steps=steps, backend=ctrl._ctrl.backend,
+               n_con=ctrl._ctrl.n_con,
+               certified=int(out["converged"].sum()),
+               iters_mean=float(out["iters"].mean()),
+               iters_max=int(out["iters"].max()), y_max=float(y.max()),
+               y_mean_last_42=float(y[-42:].mean()),
+               d_hat_mean_last_16=float(out["d_hat"][-16:].mean()),
+               ms_per_step=secs / steps * 1e3, peak_memory_bytes=peak,
+               launches_one_control=profiled_launches(lambda: ctrl.control(
+                   np.array([0.5, 0.0]), np.array([0.4]))))
+    emit("production_stack", nvidia_smi=smi, **row)
+    # tests/test_composition.py::test_production_stack_holds_all_guarantees
+    require(row["certified"] == steps and row["y_max"] <= 1.0 + 1e-4
+            and abs(row["y_mean_last_42"] - 0.92) < 0.02
+            and abs(row["d_hat_mean_last_16"] - 0.4) <= 0.02,
+            f"production stack: {row}")
+
+    # -- offset-free on the stage-wise backend at H = 512 ----------------
+    spec = long_horizon_spec(OF_H, r=np.array([0.5]))
+    (ctrl, build_s, _) = timed_phase(lambda: OffsetFreeController(
+        spec, kind="input", backend="stagewise", device=dev))
+    out, secs, peak = timed_phase(lambda: ctrl.rollout_jit(
+        np.zeros(2, np.float32), OF_STEPS, np.array([0.2], np.float32)))
+    row = dict(horizon=OF_H, n_con=ctrl._ctrl.n_con, steps=OF_STEPS,
+               certified=int(out["converged"].sum()),
+               iters_mean=float(out["iters"].mean()),
+               iters_max=int(out["iters"].max()),
+               iters=out["iters"].tolist(), y_last=float(out["y"][-1, 0]),
+               d_hat_last=float(out["d_hat"][-1, 0]), build_seconds=build_s,
+               ms_per_step=secs / OF_STEPS * 1e3,
+               mpc_h512_loop_ms_per_step_this_run=mpc_h512_ms,
+               peak_memory_bytes=peak)
+    emit("offset_free_stagewise_h512", nvidia_smi=smi, **row)
+    require(row["certified"] == OF_STEPS,
+            f"offset-free H=512: {row['certified']} of {OF_STEPS} certified")
+
+    # -- the linear MHE on the CLI's one-sided quadruple-tank record -----
+    plant = quadruple_tank()
+    x0, U, Y, X = simulated_record(plant, MHE_T, 1e-4, 1e-4, True, 0)
+    qw, rv = 1e-4 * np.eye(4), 1e-4 * np.eye(2)
+    kf_est, kf_s, _ = timed_phase(lambda: kf_estimates(
+        KalmanFilter(plant, qw, rv, device=dev), x0, U, Y))
+    kf_rmse = np.sqrt(((kf_est - X) ** 2).mean(axis=0))
+    rows = {}
+    for N in MHE_WINDOWS:
+        mhe = MovingHorizonEstimator(plant, N, qw, rv,
+                                     w_min=np.zeros(4, np.float32),
+                                     device=dev)
+        out, secs, peak = timed_phase(lambda: mhe.run(x0, U, Y))
+        rmse = np.sqrt(((out["x_hat"] - X[N - 1:]) ** 2).mean(axis=0))
+        windows = out["x_hat"].shape[0]
+        rows[N] = dict(window=N, windows=windows, n_con=mhe.data.n_con,
+                       converged_frac=float(out["converged"].mean()),
+                       iters_mean=float(out["iters"].mean()),
+                       iters_max=int(out["iters"].max()),
+                       rmse=rmse.tolist(), ms_per_window=secs / windows * 1e3,
+                       peak_memory_bytes=peak,
+                       jax_cpu_reading=dict(zip(
+                           ("converged_frac", "iters_mean", "rmse"),
+                           JAX_MHE[N])))
+        emit("mhe_quadruple_tank", nvidia_smi=smi, kf_rmse=kf_rmse.tolist(),
+             kf_ms_per_step=kf_s / MHE_T * 1e3, jax_kf_rmse=JAX_MHE["kf"],
+             **rows[N])
+        require(rows[N]["converged_frac"] == 1.0
+                and (rmse < kf_rmse).all(),
+                f"MHE window {N}: {rows[N]} against the KF's {kf_rmse}")
+
+    # -- the relinearizing MHE: the hanging pendulum, angle measured -----
+    f_hang = pendulum(9.81, 0.15, upright=False)
+    rng = np.random.default_rng(0)
+    w_sd, v_sd = np.array([0.002, 0.01]), 0.02
+    x = torch.tensor([2.4, 0.0])
+    xs, us, ys = [], [], []
+    for k in range(NMHE_T):
+        u = np.array([0.3 * np.sin(0.25 * k)], np.float32)
+        x = f_hang(x, torch.from_numpy(u)) + torch.from_numpy(
+            rng.normal(0, w_sd).astype(np.float32))
+        xs.append(x.numpy())
+        us.append(u)
+        ys.append((x.numpy()[:1] + rng.normal(0, v_sd, 1)).astype(
+            np.float32))
+    xs, us, ys = np.stack(xs), np.stack(us), np.stack(ys)
+    Qw, Rv = np.diag(w_sd ** 2), np.array([[v_sd ** 2]])
+    x0_hat = xs[0] + np.array([0.1, -0.2], np.float32)
+    A0, B0 = (j.cpu().numpy() for j in torch.func.jacrev(f_hang, (0, 1))(
+        torch.zeros(2, device=dev), torch.zeros(1, device=dev)))
+    kf = KalmanFilter(LinearPlant(A=A0, B=B0, E=np.zeros((2, 1), np.float32),
+                                  C=np.array([[1.0, 0.0]], np.float32)),
+                      Qw, Rv, device=dev)
+    kf_est = kf_estimates(kf, x0_hat, us[1:], ys[1:])
+    nmhe = NonlinearMHE(f_hang, np.array([[1.0, 0.0]]), window=NMHE_WINDOW,
+                        Qw=Qw, Rv=Rv, u_lin=np.zeros(1), w_min=-5 * w_sd,
+                        w_max=5 * w_sd, sqp_iters=2, device=dev)
+    out, secs, peak = timed_phase(lambda: nmhe.run(x0_hat, us, ys))
+    truth = xs[NMHE_WINDOW - 1:]
+    e_mhe = np.sqrt(((out["x_hat"] - truth) ** 2).mean(axis=0))
+    e_kf = np.sqrt(((kf_est[NMHE_WINDOW - 2:] - truth) ** 2).mean(axis=0))
+    windows = out["x_hat"].shape[0]
+    row = dict(window=NMHE_WINDOW, windows=windows, sqp_iters=2,
+               converged_frac=float(out["converged"].mean()),
+               iters_mean=float(out["iters"].mean()),
+               iters_max=int(out["iters"].max()), rmse=e_mhe.tolist(),
+               kf_rmse=e_kf.tolist(), ms_per_window=secs / windows * 1e3,
+               peak_memory_bytes=peak,
+               launches_one_window=profiled_launches(lambda: nmhe.step(
+                   x0_hat, us[:NMHE_WINDOW], ys[:NMHE_WINDOW])))
+    emit("nonlinear_mhe_pendulum", nvidia_smi=smi, **row)
+    require(row["converged_frac"] == 1.0 and (e_mhe < e_kf).all(),
+            f"nonlinear MHE: {row}")
+
+    # -- RTI: examples/nonlinear_mpc.py (H = 20, two passes, 60 steps) ---
+    f_up = pendulum(10.0, 0.1, upright=True)
+    from pqp_for_mpc_tpu_torch import SolverConfig
+    rti_cfg = SolverConfig(max_iters=20_000, check_every=8, accel_every=4,
+                           y0=0.01, eaj=1e-3, erj=1e-4, erc=1e-4, eac=1e-4,
+                           strict_weak_duality=False)
+    rti = RTIController(f_up, pendulum_spec(f_up, RTI_H, 0.02, 6.0, dev),
+                        cfg=rti_cfg, sqp_iters=2, device=dev)
+    out, secs, peak = timed_phase(lambda: rti.rollout(
+        np.array([2.5, 0.0], np.float32), RTI_STEPS))
+    row = dict(horizon=RTI_H, steps=RTI_STEPS, sqp_iters=2,
+               certified=int(out["converged"].sum()),
+               iters_mean=float(out["iters"].mean()),
+               iters_max=int(out["iters"].max()),
+               x_last=out["x"][-1].tolist(),
+               u_abs_max=float(np.abs(out["u"]).max()),
+               ms_per_step=secs / RTI_STEPS * 1e3, peak_memory_bytes=peak)
+    # one pass split (profiling a whole step costs seconds of host time):
+    # the nominal roll, the Jacobians, relinearize, and the solve's
+    # launches per update, check and accel step
+    x = torch.tensor([2.5, 0.0], device=dev)
+    useq = torch.zeros((RTI_H, 1), device=dev)
+    xbar = rti._nominal(x, useq)
+    A, B = rti._jacs(xbar, useq)
+    row["launches_one_pass"] = dict(
+        nominal=profiled_launches(lambda: rti._nominal(x, useq)),
+        jacobians=profiled_launches(lambda: rti._jacs(xbar, useq)),
+        relinearize=profiled_launches(lambda: relinearize(rti._sd0, A, B)),
+        solve=stagewise_launches(relinearize(rti._sd0, A, B), x[:, None],
+                                 rti.cfg))
+    emit("rti_pendulum", nvidia_smi=smi, **row)
+    # tests/test_rti.py's swing bars and the example's "stabilized upright"
+    require(row["certified"] == RTI_STEPS
+            and abs(out["x"][-1, 0]) < 0.01 and abs(out["x"][-1, 1]) < 0.02
+            and abs(out["x"][-1, 0]) < abs(out["x"][4, 0])
+            and row["u_abs_max"] <= 12.0 + 1.5e-3, f"RTI: {row}")
+
+    # -- output feedback (examples/output_feedback_nonlinear_mpc.py) -----
+    f_of = pendulum(9.81, 0.2, upright=True)
+    rti = RTIController(f_of, pendulum_spec(f_of, OFB_H, 0.05, 10.0, dev),
+                        sqp_iters=1, device=dev)
+    w_sd, v_sd = np.array([0.001, 0.005]), 0.01
+    mhe = NonlinearMHE(f_of, np.array([[1.0, 0.0]], np.float32),
+                       window=OFB_N, Qw=np.diag(w_sd ** 2),
+                       Rv=np.array([[v_sd ** 2]]), u_lin=np.zeros(1),
+                       w_min=-5 * w_sd, w_max=5 * w_sd, device=dev)
+    rng = np.random.default_rng(1)
+    w_seq = rng.normal(0, w_sd, (OFB_STEPS + OFB_N, 2)).astype(np.float32)
+    v_seq = rng.normal(0, v_sd, (OFB_STEPS + OFB_N, 1)).astype(np.float32)
+    out, secs, peak = timed_phase(lambda: output_feedback_rollout(
+        rti, mhe, np.array([0.15, 0.0], np.float32), OFB_STEPS, w_seq,
+        v_seq))
+    tail = np.abs(out["x"][-5:])
+    err = np.sqrt(((out["x_hat"][OFB_STEPS // 3:]
+                    - out["x"][OFB_STEPS // 3:]) ** 2).mean(axis=0))
+    row = dict(horizon=OFB_H, window=OFB_N, steps=OFB_STEPS,
+               certified_mhe=int(out["conv_mhe"].sum()),
+               certified_rti=int(out["conv_rti"].sum()),
+               iters_mhe_mean=float(out["iters_mhe"].mean()),
+               iters_rti_mean=float(out["iters_rti"].mean()),
+               tail_abs_max=tail.max(axis=0).tolist(),
+               estimate_rmse=err.tolist(),
+               ms_per_step=secs / OFB_STEPS * 1e3, peak_memory_bytes=peak)
+    emit("output_feedback_pendulum", nvidia_smi=smi, **row)
+    # the example's "stabilized upright from angle-only measurements" and
+    # tests/test_mhe.py's bars on the capstone
+    require(row["certified_mhe"] == row["certified_rti"] == OFB_STEPS
+            and tail[:, 0].max() < 0.05 and tail[:, 1].max() < 0.15
+            and err[0] < 0.03 and err[1] < 0.1, f"output feedback: {row}")
+    after = kernel_counts()
+    used = {k: after[k] - before[k] for k in after}
+    emit("estimation_path_kernel_launches", **used)
+    require(used == zero, f"a kernel launched on the estimation path: {used}")
+
+    # -- the command line, as subprocesses, all at once ------------------
+    argvs = {"estimate_kf": ("estimate", "--kind", "kf"),
+             "estimate_mhe": ("estimate", "--kind", "mhe", "--simulate",
+                              MHE_T, "--one-sided"),
+             "rollout_offset_free_input": ("rollout", "--offset-free",
+                                           "input", "--steps", 30),
+             "rollout_offset_free_output": ("rollout", "--offset-free",
+                                            "output", "--plant",
+                                            "quadruple_tank", "--steps",
+                                            30)}
+    t_cli = time.perf_counter()
+    results = dict(zip(argvs, run_cli_all(list(argvs.values()))))
+    cli_s = time.perf_counter() - t_cli
+    lines = {}
+    for name, (rc, out_l, err) in results.items():
+        lines[name] = json.loads(out_l.strip().splitlines()[-1]) \
+            if rc == 0 else {}
+        require(rc == 0 and lines[name], f"cli {name}: {rc} {out_l} {err}")
+    emit("cli_estimation", nvidia_smi=smi, seconds=cli_s, **lines)
+    require(lines["estimate_mhe"]["converged_frac"] == 1.0
+            and lines["rollout_offset_free_input"]["offset_free"] == "input"
+            and lines["rollout_offset_free_output"]["offset_free"]
+            == "output", f"cli estimation lines: {lines}")
+    emit("estimation_group", seconds=time.perf_counter() - t_group,
+         nvidia_smi=smi)
 
 
 def main() -> int:
@@ -1702,7 +2075,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 12: the stage-wise backend, the crossover, diff ----------
-    stagewise_paths(dev, smi)
+    h512_ms = stagewise_paths(dev, smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 12b: estimation and offset-free control -------------------
+    estimation_paths(dev, smi, mpc_h512_ms=h512_ms)
     torch.cuda.empty_cache()
 
     # -- phase 13: the command line on the card, as subprocesses ---------

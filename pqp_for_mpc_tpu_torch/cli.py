@@ -19,15 +19,17 @@ flags, defaults, printed lines and JSON keys:
 * ``rollout``          — receding-horizon closed loop on a model-zoo plant
   (condensed or stage-wise backend, ``--backend``; ``--robust-w`` tightens
   the bounds into a robust tube; ``--jit`` runs
-  ``MPCController.rollout_jit``).
+  ``MPCController.rollout_jit``; ``--offset-free input|output`` runs
+  ``OffsetFreeController.rollout_jit`` against ``--d-true``).
+* ``estimate``         — state estimation over a record: the steady-state
+  Kalman filter (``--kind kf``) or constrained moving-horizon estimation
+  (``--kind mhe``); exit code 2 when a window fails to certify.
 * ``serve``            — the JSON-lines solver daemon.
 
 Additions: ``--device`` (default ``cuda``; without a card that raises,
 ``problem.resolve_device``); ``bench-example`` takes the flags of the
 port's ``bench`` (``--device``, ``--batch``, ``--repeats``, ``--seed``)
-where the JAX one takes none.  Not ported yet, each exiting with code 1
-and naming its ROADMAP item: ``estimate`` and ``rollout --offset-free``
-(the estimators and the offset-free controller, item 10).
+where the JAX one takes none.
 """
 
 from __future__ import annotations
@@ -39,20 +41,6 @@ import time
 
 import numpy as np
 import torch
-
-#: what the unported subcommands and flags print before exiting with 1
-_NOT_PORTED = {
-    "estimate": "estimate needs the state estimators, not ported yet "
-                "(ROADMAP queue 1, item 10)",
-    "offset_free": "rollout --offset-free needs the offset-free controller, "
-                   "not ported yet (ROADMAP queue 1, item 10)",
-}
-
-
-def _not_ported(what: str) -> int:
-    print(_NOT_PORTED[what], file=sys.stderr)
-    return 1
-
 
 def _device(args) -> torch.device:
     from pqp_for_mpc_tpu_torch.problem import resolve_device
@@ -241,8 +229,108 @@ def cmd_bench_example(args) -> int:
     return run(args)
 
 
+def simulated_record(plant, T: int, qw: float, rv: float,
+                     one_sided: bool, seed: int):
+    """The estimation record ``estimate --simulate T`` synthesizes (the JAX
+    CLI's, draw for draw): ``x0`` from U(-0.5, 0.5), the known input
+    ``U (T, nu) = 0.4 sin(0.15 t)``, process noise N(0, qw) per state
+    (``|w|`` when ``one_sided``: the bound a Gaussian filter cannot see)
+    and measurement noise N(0, rv).  Returns NumPy ``(x0, U, Y, X)``, X
+    the true states."""
+    ns, nu, ny = plant.n_state, plant.n_input, plant.n_output
+    rng = np.random.default_rng(seed)
+    A, B, C = (np.asarray(plant.A), np.asarray(plant.B),
+               np.asarray(plant.C))
+    x = rng.uniform(-0.5, 0.5, ns).astype(np.float32)
+    x0 = x.copy()
+    U = (0.4 * np.sin(0.15 * np.arange(T))[:, None]
+         * np.ones(nu)).astype(np.float32)
+    X, Y = [], []
+    for t in range(T):
+        w = rng.normal(0, np.sqrt(qw), ns)
+        if one_sided:
+            w = np.abs(w)
+        x = (A @ x + B @ U[t] + w).astype(np.float32)
+        X.append(x.copy())
+        Y.append((C @ x + rng.normal(0, np.sqrt(rv), ny)).astype(np.float32))
+    return x0, U, np.stack(Y), np.stack(X)
+
+
+def kf_estimates(kf, x0, U, Y) -> np.ndarray:
+    """The Kalman filter's estimate after each measurement of the record
+    ``(U (T, nu), Y (T, ny))`` from ``x0``, kept on the filter's device
+    until the end (NumPy ``(T, ns)``)."""
+    dev = kf.device
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    U, Y, xh = f32(U), f32(Y), f32(x0)
+    est = torch.empty((Y.shape[0], xh.shape[0]), dtype=torch.float32,
+                      device=dev)
+    for t in range(Y.shape[0]):
+        xh = kf.step(xh, U[t], Y[t])
+        est[t] = xh
+    return est.cpu().numpy()
+
+
 def cmd_estimate(args) -> int:
-    return _not_ported("estimate")
+    """State estimation over an input/measurement record: steady-state
+    Kalman filter (``--kind kf``) or constrained moving-horizon estimation
+    (``--kind mhe``, window ``--window``, ``--one-sided`` bounds the noise
+    below by 0) on a model-zoo plant.  The record comes from ``--data
+    FILE.npz`` (arrays ``U (T, nu)``, ``Y (T, ny)``, optional ``X`` truth
+    and ``x0``) or is synthesized with ``--simulate T`` (then the truth is
+    known and an RMSE is reported).  ``-o OUT.npz`` writes the
+    estimates."""
+    from pqp_for_mpc_tpu_torch.models import (ZOO, KalmanFilter,
+                                              MovingHorizonEstimator)
+
+    plant = ZOO[args.plant]()
+    ns, nu, ny = plant.n_state, plant.n_input, plant.n_output
+    qw = np.diag(np.full(ns, args.qw)).astype(np.float64)
+    rv = np.diag(np.full(ny, args.rv)).astype(np.float64)
+    device = _device(args)
+
+    X = None
+    if args.data is not None:
+        rec = np.load(args.data)
+        U = np.asarray(rec["U"], np.float32).reshape(-1, nu)
+        Y = np.asarray(rec["Y"], np.float32).reshape(-1, ny)
+        X = np.asarray(rec["X"], np.float32) if "X" in rec else None
+        x0 = (np.asarray(rec["x0"], np.float32) if "x0" in rec
+              else np.zeros(ns, np.float32))
+    else:
+        x0, U, Y, X = simulated_record(plant, args.simulate, args.qw,
+                                       args.rv, args.one_sided, args.seed)
+
+    T = Y.shape[0]
+    if args.kind == "kf":
+        est = kf_estimates(KalmanFilter(plant, qw, rv, device=device),
+                           x0, U, Y)
+        iters_mean, conv = 0.0, 1.0
+        truth = X
+    else:
+        kwargs = {}
+        if args.one_sided:
+            kwargs = dict(w_min=np.zeros(ns, np.float32))
+        mhe = MovingHorizonEstimator(plant, args.window, qw, rv,
+                                     device=device, **kwargs)
+        out = mhe.run(x0, U, Y)
+        est = out["x_hat"]
+        iters_mean = float(out["iters"].mean())
+        conv = float(out["converged"].mean())
+        truth = None if X is None else X[args.window - 1:]
+
+    result = {"plant": args.plant, "kind": args.kind, "T": int(T),
+              "estimates": int(est.shape[0]),
+              "iters_mean": round(iters_mean, 1),
+              "converged_frac": round(conv, 4)}
+    if truth is not None:
+        rmse = np.sqrt(((est - truth) ** 2).mean(axis=0))
+        result["rmse"] = [round(float(v), 6) for v in rmse]
+    if args.out:
+        np.savez(args.out, x_hat=est)
+        result["out"] = args.out
+    print(json.dumps(result))
+    return 0 if conv == 1.0 else 2
 
 
 #: zoo entries constructible with no arguments (random_stable needs dims)
@@ -256,10 +344,9 @@ def _csv_floats(s):
 
 def cmd_rollout(args) -> int:
     from pqp_for_mpc_tpu_torch.models import (ZOO, MPCController, MPCSpec,
+                                              OffsetFreeController,
                                               auto_backend, robust_spec)
 
-    if args.offset_free is not None:
-        return _not_ported("offset_free")
     plant = ZOO[args.plant]()
     ny, nu = plant.n_output, plant.n_input
     y_bound = args.y_max
@@ -291,18 +378,37 @@ def cmd_rollout(args) -> int:
     device = _device(args)
     rng = np.random.default_rng(args.seed)
     x0 = rng.uniform(-1, 1, plant.n_state).astype(np.float32)
-    ctrl = MPCController(
-        spec, backend=backend,
-        warm_start="shift" if backend == "stagewise" else True,
-        retry_cold=args.retry_cold, device=device)
-    if args.jit:
-        ctrl.rollout_jit(x0, steps=args.steps)   # warm-up (kernel build)
+    extra = {}
+    if args.offset_free is not None:
+        # output-feedback offset-free loop: constant unmeasured
+        # disturbance through the model channels, estimated + rejected
+        nd = nu if args.offset_free == "input" else ny
+        d_true = (np.full(nd, 0.2, np.float32) if args.d_true is None
+                  else _csv_floats(args.d_true))
+        ctrl = OffsetFreeController(
+            spec, kind=args.offset_free, backend=backend,
+            retry_cold=args.retry_cold, device=device)
+        ctrl.rollout_jit(x0, steps=args.steps, d_true=d_true)   # warm-up
         _sync(device)
         t0 = time.perf_counter()
-        out = ctrl.rollout_jit(x0, steps=args.steps)
+        out = ctrl.rollout_jit(x0, steps=args.steps, d_true=d_true)
+        extra = {"offset_free": args.offset_free,
+                 "d_true": d_true.tolist(),
+                 "d_hat_final": out["d_hat"][-1].tolist(),
+                 "y_final": out["y"][-1].tolist()}
     else:
-        t0 = time.perf_counter()
-        out = ctrl.rollout(x0, steps=args.steps)
+        ctrl = MPCController(
+            spec, backend=backend,
+            warm_start="shift" if backend == "stagewise" else True,
+            retry_cold=args.retry_cold, device=device)
+        if args.jit:
+            ctrl.rollout_jit(x0, steps=args.steps)  # warm-up (kernel build)
+            _sync(device)
+            t0 = time.perf_counter()
+            out = ctrl.rollout_jit(x0, steps=args.steps)
+        else:
+            t0 = time.perf_counter()
+            out = ctrl.rollout(x0, steps=args.steps)
     _sync(device)
     dt = time.perf_counter() - t0
     print(json.dumps({
@@ -314,6 +420,7 @@ def cmd_rollout(args) -> int:
         "iters_max": int(out["iters"].max()),
         "wall_s": round(dt, 3),
         "steps_per_s": round(args.steps / dt, 1),
+        **extra,
     }))
     return 0
 
@@ -547,25 +654,40 @@ def main(argv=None) -> int:
                         "(models.robust_spec)")
     p.add_argument("--offset-free", choices=("input", "output"),
                    default=None,
-                   help="output-feedback offset-free loop (not ported yet)")
+                   help="run the output-feedback offset-free loop "
+                        "(augmented-KF estimation + steady-state "
+                        "targets + deviation MPC) against a constant "
+                        "unmeasured disturbance --d-true")
     p.add_argument("--d-true", default=None, metavar="D1,...",
-                   help="true unmeasured disturbance for --offset-free")
+                   help="true unmeasured disturbance for --offset-free "
+                        "(default 0.2 per channel)")
     _add_device_flag(p)
     p.set_defaults(fn=cmd_rollout)
 
     p = sub.add_parser("estimate", help="state estimation (KF / "
-                                        "constrained MHE; not ported)")
+                                        "constrained MHE) over a record")
     p.add_argument("--plant", default="double_integrator",
                    choices=_ROLLOUT_PLANTS)
     p.add_argument("--kind", choices=("kf", "mhe"), default="mhe")
-    p.add_argument("--window", type=int, default=10)
-    p.add_argument("--data", default=None)
-    p.add_argument("--simulate", type=int, default=120, metavar="T")
-    p.add_argument("--one-sided", action="store_true")
-    p.add_argument("--qw", type=float, default=1e-4)
-    p.add_argument("--rv", type=float, default=1e-4)
+    p.add_argument("--window", type=int, default=10,
+                   help="MHE window length")
+    p.add_argument("--data", default=None,
+                   help="npz record with U (T, nu), Y (T, ny) "
+                        "[, X truth, x0]; omit to --simulate")
+    p.add_argument("--simulate", type=int, default=120, metavar="T",
+                   help="synthesize a T-step noisy record (truth known "
+                        "-> RMSE reported)")
+    p.add_argument("--one-sided", action="store_true",
+                   help="one-sided process noise (w >= 0): the regime "
+                        "where the bounded MHE beats any Kalman filter")
+    p.add_argument("--qw", type=float, default=1e-4,
+                   help="process-noise variance (per state)")
+    p.add_argument("--rv", type=float, default=1e-4,
+                   help="measurement-noise variance (per output)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("-o", "--out", default=None)
+    p.add_argument("-o", "--out", default=None,
+                   help="write x_hat to this npz")
+    _add_device_flag(p)
     p.set_defaults(fn=cmd_estimate)
 
     p = sub.add_parser("serve", help="JSON-lines solver daemon on stdio")

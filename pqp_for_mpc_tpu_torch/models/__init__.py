@@ -31,8 +31,27 @@ from pqp_for_mpc_tpu_torch.models.stagewise import (  # noqa: F401
     solve_stagewise,
     stagewise_dual,
 )
+from pqp_for_mpc_tpu_torch.models.rti import (  # noqa: F401
+    RTIController,
+    output_feedback_rollout,
+)
+from pqp_for_mpc_tpu_torch.models.estimator import (  # noqa: F401
+    KalmanFilter,
+    kalman_gain,
+)
+from pqp_for_mpc_tpu_torch.models.mhe import (  # noqa: F401
+    MovingHorizonEstimator,
+    NonlinearMHE,
+)
 from pqp_for_mpc_tpu_torch.models.robust import (  # noqa: F401
     lqr_gain,
     robust_spec,
     tube_margins,
+)
+from pqp_for_mpc_tpu_torch.models.offset_free import (  # noqa: F401
+    OffsetFreeController,
+    augment_plant,
+    check_offset_free_rank,
+    disturbance_channels,
+    target_maps,
 )

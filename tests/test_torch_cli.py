@@ -311,14 +311,78 @@ def test_bench_example_needs_a_card_by_default():
         tmain(["bench-example", "--batch", "8", "--repeats", "1"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["estimate", "--kind", "kf"], "item 10"),
-    (["rollout", "--offset-free", "input"], "item 10"),
-])
-def test_unported_commands_exit_1_naming_their_item(capsys, argv, item):
-    assert tmain(argv + (CPU if argv[0] == "rollout" else [])) == 1
-    err = capsys.readouterr().err
-    assert "not ported" in err and f"ROADMAP queue 1, {item}" in err
+@pytest.mark.parametrize("argv", [
+    ["estimate", "--kind", "kf"],
+    ["estimate", "--kind", "mhe", "--one-sided"],
+    ["estimate", "--kind", "mhe", "--plant", "quadruple_tank", "--simulate",
+     "60", "--window", "6"],
+    ["rollout", "--offset-free", "input", "--steps", "30"],
+    ["rollout", "--offset-free", "output", "--plant", "quadruple_tank",
+     "--steps", "30"],
+    ["rollout", "--offset-free", "input", "--backend", "stagewise",
+     "--horizon", "32", "--steps", "10", "--d-true", "0.25"],
+], ids=["estimate_kf", "estimate_mhe_one_sided", "estimate_mhe_mimo",
+        "offset_free_input", "offset_free_output",
+        "offset_free_stagewise"])
+def test_estimation_commands_match_jax(capsys, argv):
+    """estimate and rollout --offset-free print the JAX CLI's line: its
+    keys, the same exit code, the same plant, kind and counts; RMSE and
+    the final estimates within 5e-3 * max(1, |want|) (the oracle bar),
+    the final state within 1e-3 and mean iterations within 10% (the
+    rollout bar above; 1 iteration where the mean is the floor of one
+    check)."""
+    rc_j = jmain(argv)
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    rc_t = tmain(argv + CPU)
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc_t == rc_j == 0
+    assert set(got) == set(want)
+    exact = ("plant", "kind", "T", "estimates", "converged_frac", "horizon",
+             "steps", "backend", "moves", "robust_w", "offset_free",
+             "d_true")
+    for k in set(exact) & set(want):
+        assert got[k] == want[k], k
+    for k in ("rmse", "d_hat_final", "y_final"):
+        if k in want:
+            w = np.asarray(want[k])
+            np.testing.assert_allclose(
+                got[k], w, rtol=0, atol=5e-3 * max(1.0, np.abs(w).max()),
+                err_msg=k)
+    if "final_state_norm" in want:
+        assert abs(got["final_state_norm"] - want["final_state_norm"]) \
+            <= 1e-3
+    assert abs(got["iters_mean"] - want["iters_mean"]) \
+        <= max(1.0, 0.1 * want["iters_mean"])
+
+
+def test_estimate_writes_its_estimates(tmp_path, capsys):
+    """-o writes x_hat; a record read back with --data gives the same
+    estimates as the simulated one (the truth rides along as X)."""
+    from pqp_for_mpc_tpu_torch.cli import simulated_record
+    from pqp_for_mpc_tpu_torch.models import double_integrator
+    out = str(tmp_path / "est.npz")
+    assert tmain(["estimate", "--kind", "kf", "-o", out] + CPU) == 0
+    line = json.loads(capsys.readouterr().out.strip())
+    assert line["out"] == out
+    x0, U, Y, X = simulated_record(double_integrator(), 120, 1e-4, 1e-4,
+                                   False, 0)
+    rec = str(tmp_path / "rec.npz")
+    np.savez(rec, U=U, Y=Y, X=X, x0=x0)
+    assert tmain(["estimate", "--kind", "kf", "--data", rec] + CPU) == 0
+    again = json.loads(capsys.readouterr().out.strip())
+    assert again["rmse"] == line["rmse"]
+    np.testing.assert_array_equal(np.load(out)["x_hat"].shape, (120, 2))
+
+
+@pytest.mark.parametrize("argv", [
+    ["estimate", "--kind", "kf"],
+    ["rollout", "--offset-free", "input", "--steps", "2"],
+], ids=["estimate", "rollout_offset_free"])
+def test_estimation_commands_need_a_card_by_default(argv):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default builds there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmain(argv)
 
 
 def test_device_defaults_to_the_card(instance):

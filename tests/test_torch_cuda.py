@@ -927,3 +927,93 @@ def test_implicit_gradient_on_the_card_matches_cpu(dev):
     assert Ub.device.type == "cuda"
     for b in range(16):
         torch.testing.assert_close(Ub[b], f(Fps[b]), rtol=1e-5, atol=1e-5)
+
+
+def _loop_bars(card, cpu, keys, conv_keys=("converged",)):
+    """Card against CPU for a closed loop or record: equal verdicts (every
+    step certified), each of ``keys`` within 5e-3 * max(1, |cpu|max) at
+    every step (the oracle bar)."""
+    for k in conv_keys:
+        assert cpu[k].all()
+        np.testing.assert_array_equal(card[k], cpu[k])
+    for k in keys:
+        tol = 5e-3 * max(1.0, float(np.abs(cpu[k]).max()))
+        np.testing.assert_allclose(card[k], cpu[k], rtol=0, atol=tol,
+                                   err_msg=k)
+
+
+def test_offset_free_loop_on_the_card_matches_cpu(dev):
+    """tests/test_offset_free.py's input-disturbance loop (double integrator,
+    H=20, d = 0.3, 60 steps) on both backends, on the card against the CPU;
+    every solve stays off the hand-written kernels (the plain solve, as in
+    the JAX package)."""
+    from pqp_for_mpc_tpu_torch.models import OffsetFreeController
+    spec = MPCSpec(double_integrator(), horizon=20, Qy=np.eye(1),
+                   R=0.1 * np.eye(1), r=np.ones(1), u_min=-2 * np.ones(1),
+                   u_max=2 * np.ones(1), du_max=np.ones(1))
+    for backend in ("condensed", "stagewise"):
+        out = {}
+        before = solve_kernel.fused_full_solve.launches
+        for d in (dev, torch.device("cpu")):
+            ctrl = OffsetFreeController(spec, kind="input", backend=backend,
+                                        device=d)
+            out[d.type] = ctrl.rollout_jit(np.zeros(2, np.float32), 60,
+                                           np.array([0.3], np.float32))
+        assert solve_kernel.fused_full_solve.launches == before
+        _loop_bars(out["cuda"], out["cpu"], ("u", "y", "d_hat"))
+        assert np.abs(out["cuda"]["y"][-10:] - 1.0).max() < 1e-2
+
+
+def test_mhe_record_on_the_card_matches_cpu(dev):
+    """The CLI's one-sided quadruple-tank record (120 steps, seed 0) through
+    the linear MHE (window 10) on the card against the CPU."""
+    from pqp_for_mpc_tpu_torch.cli import simulated_record
+    from pqp_for_mpc_tpu_torch.models import (MovingHorizonEstimator,
+                                              quadruple_tank)
+    plant = quadruple_tank()
+    x0, U, Y, _ = simulated_record(plant, 120, 1e-4, 1e-4, True, 0)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        mhe = MovingHorizonEstimator(plant, 10, 1e-4 * np.eye(4),
+                                     1e-4 * np.eye(2),
+                                     w_min=np.zeros(4, np.float32),
+                                     device=d)
+        out[d.type] = mhe.run(x0, U, Y)
+    _loop_bars(out["cuda"], out["cpu"], ("x_hat",))
+
+
+def test_rti_loop_on_the_card_matches_cpu(dev):
+    """tests/test_rti.py's swing (H=16, two SQP passes, 20 steps from 2.5
+    rad) with the Jacobians from torch.func on the card, against the CPU."""
+    from pqp_for_mpc_tpu_torch.models import LTVPlant, RTIController
+
+    def f_disc(x, u):
+        def f(x):
+            return torch.stack([x[1], 10.0 * torch.sin(x[0]) - 0.1 * x[1]
+                                + u[0]])
+        k1 = f(x)
+        k2 = f(x + 0.025 * k1)
+        k3 = f(x + 0.025 * k2)
+        k4 = f(x + 0.05 * k3)
+        return x + (0.05 / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+    H = 16
+    A, B = (j.numpy() for j in torch.func.jacrev(f_disc, (0, 1))(
+        torch.zeros(2), torch.zeros(1)))
+    plant = LTVPlant(A=np.tile(A[None], (H, 1, 1)),
+                     B=np.tile(B[None], (H, 1, 1)),
+                     E=np.tile(np.eye(2, dtype=np.float32)[None], (H, 1, 1)),
+                     C=np.tile(np.array([[[1.0, 0.0]]], np.float32),
+                               (H, 1, 1)))
+    spec = MPCSpec(plant, horizon=H, Qy=np.eye(1), R=0.02 * np.eye(1),
+                   r=np.zeros(1), u_min=-12 * np.ones(1),
+                   u_max=12 * np.ones(1), du_max=6 * np.ones(1))
+    cfg = SolverConfig(max_iters=20_000, check_every=8, accel_every=4,
+                       y0=0.01, eaj=1e-3, erj=1e-4, erc=1e-4, eac=1e-4,
+                       strict_weak_duality=False)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        out[d.type] = RTIController(f_disc, spec, cfg=cfg, sqp_iters=2,
+                                    device=d).rollout([2.5, 0.0], 20)
+    _loop_bars(out["cuda"], out["cpu"], ("u", "x"))
+    assert abs(out["cuda"]["x"][-1, 0]) < 1.25

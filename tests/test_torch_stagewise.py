@@ -288,3 +288,21 @@ def test_stagewise_build_at_h512_picks_jax_band():
               for f in dataclasses.fields(sd.factor)]
     assert max(t.numel() for t in factor
                if isinstance(t, torch.Tensor)) <= 512 * 4
+
+
+@pytest.mark.parametrize("build", ["stagewise_dual", "relinearize"])
+def test_the_build_takes_no_pscan(build):
+    """The port's build always runs the sequential recursions: unlike the
+    JAX package's (``stagewise.py:791,868``), ``stagewise_dual`` and
+    ``relinearize`` take no ``pscan``, and a JAX-style call with one raises
+    ``TypeError``.  No caller passes it in either package: the estimators
+    and RTI (``models/mhe.py``, ``models/rti.py``) call both without."""
+    spec = _spec(MPCSpec, plants.double_integrator(), 8)
+    sd = ts.stagewise_dual(spec, device=CPU)
+    calls = {"stagewise_dual": lambda **kw: ts.stagewise_dual(
+                 spec, device=CPU, **kw),
+             "relinearize": lambda **kw: ts.relinearize(
+                 sd, sd.factor.A, sd.factor.Bm, **kw)}
+    calls[build]()
+    with pytest.raises(TypeError, match="pscan"):
+        calls[build](pscan=True)
