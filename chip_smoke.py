@@ -70,6 +70,24 @@ at full size and times them:
   and stabilized) and ``examples/output_feedback_nonlinear_mpc.py`` (H =
   24, N = 8, 60 steps), each with ms per step, iterations and peak device
   memory;
+* data- and tensor-parallel solves (``parallel/``; no hand-written kernel
+  lies on them either, as in the JAX package: every kernel counter is read
+  before and after and must not move), on a 1 x 1 mesh of a one-rank NCCL
+  group (one card measures no scaling): ``solve_row_sharded`` on the
+  streamed workload in float32 (plain's verdicts on every lane, U and
+  iterations within the parity bar) and ``mixed`` (>= 99% certified, U
+  within 2e-3 of float32's), each with its seconds beside plain's and its
+  collectives counted; ``shard_batch`` + ``solve_batched`` on the main
+  path's batch, bit for bit plain's; the ``sharded_large_n`` twin under
+  ``torchrun`` (``'converged': 8``); and, four processes at once, the
+  twins of ``examples/`` whose settings no other phase drives
+  (``pqp_for_mpc_tpu_torch.examples``: ``scenario_batch``,
+  ``large_n_mixed``, ``receding_horizon``, ``constrained_outputs_mpc``,
+  ``learned_mpc_closed_loop``, ``train_mpc_optax``, ``offset_free_mpc``),
+  each at its JAX test's arguments and held to that test's line
+  (``scenario_batch`` solves through K1, ``solve_fused``, as the JAX
+  example does on its accelerator; its launches are its own process's
+  and move no counter of this one);
 * the command line, as subprocesses of ``python -m pqp_for_mpc_tpu_torch``:
   ``generate``, ``solve-file`` (engines auto, fused and mixed; the auto
   line held against the same command on the CPU), ``bench`` (riding K2),
@@ -962,25 +980,28 @@ def timed_phase(fn):
     return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
 
-def run_cli_all(argvs, timeout=300):
-    """Run ``python -m pqp_for_mpc_tpu_torch *argv`` for every argv at once
-    from the checkout's root; [(exit code, stdout, stderr)] in order.  Every
-    process is ended before this returns."""
+def run_modules(argvs, timeout: float = 600):
+    """``python -m <module> *args`` for each ``(module, *args)`` of
+    ``argvs`` from the checkout's root, four at a time: [(exit code,
+    stdout, stderr, seconds)] in order.  A process past ``timeout`` is
+    killed (exit code None)."""
+    from concurrent.futures import ThreadPoolExecutor
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "pqp_for_mpc_tpu_torch", *map(str, argv)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
-        env=env) for argv in argvs]
-    try:
-        outs = [p.communicate(timeout=timeout) for p in procs]
-        return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+
+    def one(argv):
+        t0 = time.perf_counter()
+        try:
+            p = subprocess.run([sys.executable, "-m", *map(str, argv)],
+                               capture_output=True, text=True, cwd=root,
+                               env=env, timeout=timeout)
+            return p.returncode, p.stdout, p.stderr, \
+                time.perf_counter() - t0
+        except subprocess.TimeoutExpired as e:
+            return None, str(e.stdout), str(e.stderr), timeout
+    with ThreadPoolExecutor(4) as pool:
+        return list(pool.map(one, argvs))
 
 
 def estimation_paths(dev, smi: str, mpc_h512_ms=None) -> None:
@@ -1214,10 +1235,12 @@ def estimation_paths(dev, smi: str, mpc_h512_ms=None) -> None:
                                             "quadruple_tank", "--steps",
                                             30)}
     t_cli = time.perf_counter()
-    results = dict(zip(argvs, run_cli_all(list(argvs.values()))))
+    results = dict(zip(argvs, run_modules(
+        [("pqp_for_mpc_tpu_torch", *argv) for argv in argvs.values()],
+        timeout=300)))
     cli_s = time.perf_counter() - t_cli
     lines = {}
-    for name, (rc, out_l, err) in results.items():
+    for name, (rc, out_l, err, _) in results.items():
         lines[name] = json.loads(out_l.strip().splitlines()[-1]) \
             if rc == 0 else {}
         require(rc == 0 and lines[name], f"cli {name}: {rc} {out_l} {err}")
@@ -1227,6 +1250,190 @@ def estimation_paths(dev, smi: str, mpc_h512_ms=None) -> None:
             and lines["rollout_offset_free_output"]["offset_free"]
             == "output", f"cli estimation lines: {lines}")
     emit("estimation_group", seconds=time.perf_counter() - t_group,
+         nvidia_smi=smi)
+
+
+def parallel_paths(dev, smi: str, main_plain: dict, big_plain: dict,
+                   big_cfg) -> None:
+    """Data- and tensor-parallel solves (``parallel/``) on the card.  No
+    hand-written kernel lies on these paths, as in the JAX package, whose
+    sharded products are plain matmuls inside ``shard_map``: every kernel
+    counter stays at 0 over the group.  One card is a 1 x 1 mesh of a
+    one-rank NCCL group, so every collective runs, over one rank, and no
+    scaling is measured.  ``main_plain`` and ``big_plain`` hold the plain
+    ``solve_batched`` results (U, iters, converged; the large-N run's
+    seconds per batch too) of the main path's and the streamed workload's
+    phases.  Phases:
+
+    * ``row_sharded_streamed``: ``solve_row_sharded`` on the streamed
+      workload under the large-N configuration, float32 and ``mixed``:
+      float32 gives plain's verdict on every lane, U within the parity bar
+      and iterations within max(5, iters/5) rounded up to whole checks;
+      mixed certifies >= 99% with U within 2e-3 of float32's; each run's
+      collectives counted (all-gathers by dtype with their bytes,
+      all-reduces);
+    * ``data_parallel_main``: ``shard_batch`` + ``solve_batched`` on the
+      main path's batch, U, iterations and verdicts bit for bit plain's;
+    * ``sharded_large_n_torchrun``: the ``sharded_large_n`` twin under
+      ``torchrun`` (one process; the env-driven ``initialize`` on NCCL):
+      ``'converged': 8``;
+    * ``example_twins``: the twins whose settings the script does not
+      already drive, four processes at once, at their JAX tests' arguments
+      (the default where the JAX package has no test), each held to its
+      JAX test's line.  ``long_horizon_mpc``, ``production_mpc``,
+      ``nonlinear_mpc``, ``output_feedback_nonlinear_mpc`` and
+      ``differentiable_mpc`` are driven at their settings by
+      ``stagewise_paths`` and ``estimation_paths``."""
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+    import pqp_for_mpc_tpu_torch as pqp
+    from pqp_for_mpc_tpu_torch.bench import EXAMPLE_CFG, example_workload
+    from pqp_for_mpc_tpu_torch.parallel import (make_mesh, shard_batch,
+                                                solve_row_sharded)
+    from pqp_for_mpc_tpu_torch.parallel.distributed import initialize
+    t_group = time.perf_counter()
+    zero = {k: 0 for k in kernel_counts()}
+    before = kernel_counts()
+    tally = {}
+    real = {"all_gather_into_tensor": tdist.all_gather_into_tensor,
+            "all_reduce": tdist.all_reduce}
+
+    def counted(name):
+        def call(*args, **kw):
+            key = name
+            if name == "all_gather_into_tensor":
+                key = f"all_gather_{args[1].dtype}".replace("torch.", "")
+                tally[key + "_bytes"] = (tally.get(key + "_bytes", 0)
+                                         + args[0].numel()
+                                         * args[0].element_size())
+            tally[key] = tally.get(key, 0) + 1
+            return real[name](*args, **kw)
+        return call
+
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize(init_method=f"file://{tmp}/store", num_processes=1,
+                   process_id=0, device=dev)
+        try:
+            mesh = make_mesh(data=1, model=1, device_type=dev.type)
+            # -- row-sharded on the streamed workload, f32 and mixed -----
+            lp, ld = streamed_workload(dev)
+            runs = {}
+            for name, mixed in (("float32", False), ("mixed", True)):
+                tally.clear()
+                for k in real:
+                    setattr(tdist, k, counted(k))
+                try:
+                    res, secs, peak = timed_phase(lambda: solve_row_sharded(
+                        lp, ld, cfg=big_cfg, mesh=mesh, mixed=mixed))
+                finally:
+                    for k, fn in real.items():
+                        setattr(tdist, k, fn)
+                runs[name] = res
+                emit("row_sharded_streamed", mode=name, mesh=[1, 1],
+                     n=N_BIG, m=M_BIG, batch=B_BIG,
+                     converged_frac=float(res.converged.float().mean()),
+                     iters_mean=float(res.iters.float().mean()),
+                     iters_max=int(res.iters.max()),
+                     seconds_per_batch=secs, peak_memory_bytes=peak,
+                     plain_seconds_per_batch=big_plain["seconds_per_batch"],
+                     collectives=dict(tally), nvidia_smi=smi)
+            r32, rmx = runs["float32"], runs["mixed"]
+            it_p = big_plain["iters"].long()
+            k = big_cfg.check_every
+            bar = torch.div(torch.clamp(it_p // 5, min=5) + k - 1, k,
+                            rounding_mode="floor") * k
+            U_p = big_plain["U"]
+            cmp = dict(
+                verdicts_equal_plain=int((r32.converged
+                                          == big_plain["converged"]).sum()),
+                u_max_abs_err=float((r32.U - U_p).abs().max()),
+                u_tol=5e-3 * max(1.0, float(U_p.abs().max())),
+                iters_max_abs_diff=int((r32.iters.long() - it_p).abs().max()),
+                iters_within_bar=int(((r32.iters.long() - it_p).abs()
+                                      <= bar).sum()),
+                mixed_converged_frac=float(rmx.converged.float().mean()),
+                mixed_u_max_abs_err=float((rmx.U - r32.U).abs().max()),
+                mixed_u_within_2e3=bool(torch.allclose(
+                    rmx.U, r32.U, rtol=2e-3, atol=2e-3)),
+                all_gather_bytes_received_per_rank_per_update=dict(
+                    float32=f"(mp-1)/mp * {N_BIG * B_BIG * 4}",
+                    bfloat16=f"(mp-1)/mp * {N_BIG * B_BIG * 2}"))
+            emit("row_sharded_streamed_parity", batch=B_BIG, **cmp)
+            require(cmp["verdicts_equal_plain"] == B_BIG
+                    and cmp["u_max_abs_err"] <= cmp["u_tol"]
+                    and cmp["iters_within_bar"] == B_BIG,
+                    f"row-sharded float32 against plain: {cmp}")
+            require(cmp["mixed_converged_frac"] >= 0.99
+                    and cmp["mixed_u_within_2e3"],
+                    f"row-sharded mixed: {cmp}")
+            del lp, ld, runs, r32, rmx
+            torch.cuda.empty_cache()
+
+            # -- data parallel on the main path's batch -----------------
+            primal, dual = example_workload(B_MAIN, dev)
+            pl, dl = shard_batch(primal, dual, mesh)
+            res, secs, peak = timed_phase(
+                lambda: pqp.solve_batched(pl, dl, cfg=EXAMPLE_CFG))
+            bits = dict(
+                u=bits_equal([res.U], [main_plain["U"]]),
+                iters=bool(torch.equal(res.iters, main_plain["iters"])),
+                verdicts=bool(torch.equal(res.converged,
+                                          main_plain["converged"])))
+            emit("data_parallel_main", mesh=[1, 1], batch=B_MAIN,
+                 converged_frac=float(res.converged.float().mean()),
+                 iters_mean=float(res.iters.float().mean()),
+                 seconds_per_batch=secs, peak_memory_bytes=peak,
+                 bits_equal_plain=bits, nvidia_smi=smi)
+            require(all(bits.values()),
+                    f"data-parallel solve differs from plain: {bits}")
+            del primal, dual, pl, dl, res
+        finally:
+            tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    after = kernel_counts()
+    used = {k: after[k] - before[k] for k in after}
+    emit("parallel_path_kernel_launches", **used)
+    require(used == zero, f"a kernel launched on the parallel path: {used}")
+
+    # -- the sharded_large_n twin under torchrun (env:// on NCCL) --------
+    ((rc, out, err, secs),) = run_modules(
+        [("torch.distributed.run", "--standalone", "--nproc_per_node=1",
+          "-m", "pqp_for_mpc_tpu_torch.examples.sharded_large_n",
+          "--device", dev.type)], timeout=300)
+    emit("sharded_large_n_torchrun", seconds=secs, stdout=out.strip(),
+         nvidia_smi=smi)
+    require(rc == 0 and "'converged': 8" in out,
+            f"sharded_large_n under torchrun: {rc} {out} {err[-3000:]}")
+
+    # -- the twins, four at once ------------------------------------------
+    twins = {"scenario_batch": (["64"], ["solves/s"]),
+             "large_n_mixed": ([], ["certified 8/8", "max |dU|"]),
+             "receding_horizon": (["30"], ["steps in"]),
+             "constrained_outputs_mpc": (["48", "20"],
+                                         ["certified 100%",
+                                          "bound honored: True"]),
+             "learned_mpc_closed_loop": ([], ["closed-loop cost"]),
+             "train_mpc_optax": (["4", "6"], ["->", "scenarios"]),
+             "offset_free_mpc": (["60"], ["offset-free",
+                                          "all converged: True"])}
+    t_twins = time.perf_counter()
+    results = run_modules([(f"pqp_for_mpc_tpu_torch.examples.{name}", *argv,
+                            "--device", dev.type)
+                           for name, (argv, _) in twins.items()])
+    rows = {}
+    for (name, (argv, lines)), (rc, out, err, secs) in zip(twins.items(),
+                                                           results):
+        rows[name] = dict(argv=argv, rc=rc, seconds=secs,
+                          lines_found=all(x in out for x in lines),
+                          last_line=(out.strip().splitlines() or [""])[-1],
+                          stderr_tail=err[-1500:] if rc else "")
+    emit("example_twins", seconds=time.perf_counter() - t_twins,
+         nvidia_smi=smi, **rows)
+    require(all(r["rc"] == 0 and r["lines_found"] for r in rows.values()),
+            f"example twins: {rows}")
+    emit("parallel_group", seconds=time.perf_counter() - t_group,
          nvidia_smi=smi)
 
 
@@ -1392,6 +1599,9 @@ def main() -> int:
         elif name == "k2_route":
             launches["k2"] = kernels.fused_pqp_iterations.launches
         conv = float(res.converged.float().mean())
+        if name == "plain":     # parallel_paths holds its solve to these
+            main_plain = dict(U=res.U, iters=res.iters,
+                              converged=res.converged)
         ms = cuda_ms(fn, reps=2)
         main_rows[name] = dict(
             converged_frac=conv, iters_mean=float(res.iters.float().mean()),
@@ -1702,6 +1912,9 @@ def main() -> int:
             seconds_first_run=time.perf_counter() - t0,
             launches=route_launches[name])
         require(conv >= 0.99, f"{name}: only {conv:.4f} converged")
+        if name == "plain":     # parallel_paths holds its solve to these
+            big_plain = dict(U=res.U, iters=res.iters,
+                             converged=res.converged)
         del res
     big_launches = {
         "k3_float32": route_launches["mixed_route"]["k3_float32"],
@@ -1720,6 +1933,8 @@ def main() -> int:
     for name, (fn, _) in big_runs.items():
         ms = cuda_ms(fn, reps=1, warmup=False)
         big_rows[name]["seconds_per_batch"] = ms / 1e3
+        if name == "plain":
+            big_plain["seconds_per_batch"] = ms / 1e3
         emit("large_n_path", engine=name, n=N_BIG, m=M_BIG, batch=B_BIG,
              nvidia_smi=smi, **big_rows[name])
     # K3's float32 updates are the plain update's up to summation order
@@ -2080,6 +2295,11 @@ def main() -> int:
 
     # -- phase 12b: estimation and offset-free control -------------------
     estimation_paths(dev, smi, mpc_h512_ms=h512_ms)
+    torch.cuda.empty_cache()
+
+    # -- phase 12c: data- and tensor-parallel solves (parallel/) ---------
+    parallel_paths(dev, smi, main_plain, big_plain, big_cfg)
+    del main_plain, big_plain
     torch.cuda.empty_cache()
 
     # -- phase 13: the command line on the card, as subprocesses ---------

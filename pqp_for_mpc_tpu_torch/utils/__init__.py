@@ -1,2 +1,3 @@
 """Utilities: solver-state checkpointing (:mod:`~pqp_for_mpc_tpu_torch.utils.
-state`)."""
+state`) and profiling (:mod:`~pqp_for_mpc_tpu_torch.utils.profiling`:
+``trace`` and ``timed``)."""
