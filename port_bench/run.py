@@ -1,0 +1,62 @@
+#!/usr/bin/env python3
+"""Run one cell of the benchmark of ``pqp_for_mpc_tpu_torch`` on one GPU.
+
+    python3 port_bench/run.py --workload <cell> --seed <n> --seconds <s>
+                              --trace <0|1>
+
+Prints one JSON line last on standard output: ``correct``, ``attempted``,
+``failed``, ``metrics`` (the cell's end-to-end metrics, or with
+``--trace 1`` its per-layer metrics), ``device`` (and with ``--trace 1``
+``breakdown``), and ``checks`` last: each number the comparison with the
+float64 reference computed, beside its limit; those numbers are also the
+last lines of standard error.  With ``--trace 1`` an earlier line gives
+the route the program picked and its kernel launch counters over the
+window.  Exits non-zero and prints no result without a CUDA device, or if
+JAX or the JAX package was loaded.
+"""
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import os  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = ap.parse_args(argv)
+
+    # one host thread: the benchmark's own host work is small, and pools of
+    # spinning threads only add noise beside the program's launch path
+    os.environ["OMP_NUM_THREADS"] = "1"
+    import torch
+    torch.set_num_threads(1)
+    from port_bench import harness
+    bench = harness.Bench()
+    chips = bench.cell(args.workload)["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"{args.workload} needs {chips} CUDA device(s); "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
+              " available", file=sys.stderr)
+        return 2
+    result = harness.run(bench, args.workload, args.seed, args.seconds,
+                         bool(args.trace), device="cuda", t_start=T_START)
+    found = harness.forbidden_modules()
+    if found:
+        print(f"forbidden modules loaded: {found}", file=sys.stderr)
+        return 3
+    harness.emit(result)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
