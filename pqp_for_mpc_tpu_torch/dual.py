@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from pqp_for_mpc_tpu_torch.problem import DualQP, PrimalQP
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 
 def dualize(primal: PrimalQP, theta_floor: float = 5.0,
@@ -62,18 +63,21 @@ def dualize_forcing(geom: dict, Fp: torch.Tensor, Mp: torch.Tensor,
     """The per-instance half of :func:`dualize`: ``Fd = GQi Fp + Kp``,
     ``Md = Fp'Qp^-1 Fp - Mp`` and the Fd split.  ``Fp`` may be ``(M,)`` or
     ``(M, B)``; ``Mp`` scalar or ``(B,)``."""
-    batched = Fp.dim() == 2 or Kp.dim() == 2
-    Fp2 = Fp if Fp.dim() == 2 else Fp[:, None]
-    Kp2 = Kp if Kp.dim() == 2 else Kp[:, None]
-    Fd = geom["GQi"] @ Fp2 + Kp2
-    QiF = geom["Qp_inv"] @ Fp2
-    Md = (Fp2 * QiF).sum(dim=0) - Mp
-    if not batched:
-        Fd = Fd[:, 0]
-        Md = Md[0] if Md.dim() else Md
-    return DualQP(Qd=geom["Qd"], Fd=Fd, Md=Md, theta=geom["theta"],
-                  Qdp_theta=geom["Qdp_theta"], Qdn_theta=geom["Qdn_theta"],
-                  Fdp=torch.clamp(Fd, min=0.0), Fdn=torch.clamp(-Fd, min=0.0))
+    with tracing.span("build.dualize_forcing", device=Fp):
+        batched = Fp.dim() == 2 or Kp.dim() == 2
+        Fp2 = Fp if Fp.dim() == 2 else Fp[:, None]
+        Kp2 = Kp if Kp.dim() == 2 else Kp[:, None]
+        Fd = geom["GQi"] @ Fp2 + Kp2
+        QiF = geom["Qp_inv"] @ Fp2
+        Md = (Fp2 * QiF).sum(dim=0) - Mp
+        if not batched:
+            Fd = Fd[:, 0]
+            Md = Md[0] if Md.dim() else Md
+        return DualQP(Qd=geom["Qd"], Fd=Fd, Md=Md, theta=geom["theta"],
+                      Qdp_theta=geom["Qdp_theta"],
+                      Qdn_theta=geom["Qdn_theta"],
+                      Fdp=torch.clamp(Fd, min=0.0),
+                      Fdn=torch.clamp(-Fd, min=0.0))
 
 
 def dualize_distinct(primal: PrimalQP, theta_floor: float = 5.0,

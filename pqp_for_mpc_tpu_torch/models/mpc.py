@@ -43,6 +43,7 @@ from pqp_for_mpc_tpu_torch.models.stagewise import (solve_stagewise,
                                                     stagewise_dual)
 from pqp_for_mpc_tpu_torch.problem import CondensedMPCData, resolve_device
 from pqp_for_mpc_tpu_torch.routing import solve_auto
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -690,19 +691,25 @@ class MPCController:
     def step(self, x, d_seq=None, u_prev=None):
         """Solve one MPC QP; returns (u0, SolveResult).  ``x`` may be
         batched ``(ns, B)`` for scenario fan-outs."""
-        if self.backend == "stagewise":
-            return self._step_stagewise(x, d_seq, u_prev)
+        with tracing.span("mpc.step"):
+            if self.backend == "stagewise":
+                return self._step_stagewise(x, d_seq, u_prev)
+            return self._step_condensed(x, d_seq, u_prev)
+
+    def _step_condensed(self, x, d_seq=None, u_prev=None):
+        """:meth:`step` on the condensed backend."""
         H, nu = self.spec.horizon, self.spec.plant.n_input
         nd = self.spec.plant.n_dist
-        D = (torch.zeros(H * nd, dtype=torch.float32, device=self.device)
-             if d_seq is None else self._as_f32(d_seq).reshape(-1))
-        data = (self.data if u_prev is None
-                else self._data_with_uprev(self._as_f32(u_prev)))
-        primal = data.assemble(x=self._as_f32(x), D=D, Qp=self.Qp)
-        dual = dualize_forcing(self._geom, primal.Fp, primal.Mp, primal.Kp,
-                               precision=self.cfg.precision)
-        Y0 = self._warm_start(primal.Fp.shape[1]
-                              if primal.Fp.dim() == 2 else 1)
+        with tracing.span("mpc.build"):
+            D = (torch.zeros(H * nd, dtype=torch.float32, device=self.device)
+                 if d_seq is None else self._as_f32(d_seq).reshape(-1))
+            data = (self.data if u_prev is None
+                    else self._data_with_uprev(self._as_f32(u_prev)))
+            primal = data.assemble(x=self._as_f32(x), D=D, Qp=self.Qp)
+            dual = dualize_forcing(self._geom, primal.Fp, primal.Mp,
+                                   primal.Kp, precision=self.cfg.precision)
+            Y0 = self._warm_start(primal.Fp.shape[1]
+                                  if primal.Fp.dim() == 2 else 1)
         res = solve_auto(primal, dual, Y0=Y0, cfg=self.cfg,
                          retry_cold=self.retry_cold and Y0 is not None)
         if self.warm_start:
@@ -716,16 +723,18 @@ class MPCController:
         :func:`~pqp_for_mpc_tpu_torch.models.stagewise.solve_stagewise`."""
         spec = self.spec
         nu, nd = spec.plant.n_input, spec.plant.n_dist
-        x2 = self._as_f32(x)
-        x2 = x2 if x2.dim() == 2 else x2[:, None]
-        B = x2.shape[1]
-        dseq = None
-        if d_seq is not None:
-            dseq = self._as_f32(d_seq).reshape(spec.horizon, nd)[..., None]
-            dseq = dseq.expand(spec.horizon, nd, B)
-        sd = (self._sd if u_prev is None
-              else self._sd_with_uprev(self._as_f32(u_prev)))
-        Y0 = self._warm_start(B)
+        with tracing.span("mpc.build"):
+            x2 = self._as_f32(x)
+            x2 = x2 if x2.dim() == 2 else x2[:, None]
+            B = x2.shape[1]
+            dseq = None
+            if d_seq is not None:
+                dseq = self._as_f32(d_seq).reshape(spec.horizon,
+                                                   nd)[..., None]
+                dseq = dseq.expand(spec.horizon, nd, B)
+            sd = (self._sd if u_prev is None
+                  else self._sd_with_uprev(self._as_f32(u_prev)))
+            Y0 = self._warm_start(B)
         res = solve_stagewise(sd, x2, dseq=dseq, Y0=Y0, cfg=self.cfg,
                               retry_cold=self.retry_cold and Y0 is not None)
         if self.warm_start:

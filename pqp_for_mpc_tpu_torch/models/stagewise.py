@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from pqp_for_mpc_tpu_torch.config import SolverConfig
 from pqp_for_mpc_tpu_torch.problem import resolve_device
 from pqp_for_mpc_tpu_torch.solver import SolveResult, retry_cold_solve
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -937,7 +938,8 @@ def solve_stagewise(dual: StagewiseDual, x0: torch.Tensor,
         div = torch.zeros(B, dtype=torch.bool, device=dev)
         h = 1
         # one host sync per check: the JAX package's while-loop condition
-        while h <= cfg.max_iters and not bool(done.all()):
+        while h <= cfg.max_iters and not tracing.sync(done.all(),
+                                                       "stagewise"):
             ok = check(Y)[0]
             bad = ~torch.isfinite(Y).all(dim=0) & ~done
             newly = ok & ~done & ~bad

@@ -37,6 +37,7 @@ from pqp_for_mpc_tpu_torch.ops.kernels import (SMEM_LIMIT_BYTES, _matrix,
 from pqp_for_mpc_tpu_torch.ops.solve_kernel import (LANE_CERTIFIED,
                                                     LANE_STALLED,
                                                     fused_full_solve_reference)
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 #: one instance's matrices (three Qd splits, Gp twice, Qp twice) the router
 #: lets K5 take.  The TPU kernel's per-grid-step VMEM operand budget
@@ -263,17 +264,18 @@ def fused_full_solve_distinct(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
     state = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return y.T, u.T, iters, state
+    args = (dn.data_ptr(), dp.data_ptr(), qd.data_ptr(), gp.data_ptr(),
+            gp_stride, qp.data_ptr(), qpi.data_ptr(), qp_stride,
+            *[t.data_ptr() for t in panels], y.data_ptr(), u.data_ptr(),
+            iters.data_ptr(), state.data_ptr(), N, M, B, int(max_iters),
+            int(check_every), int(accel_every), float(eaj), float(erj),
+            int(bool(strict)), float(den_eps), int(plan["resident"]),
+            build.stream_handle(dev))
     lib = build.load_library()
-    code = lib.full_solve_distinct_f32(
-        dn.data_ptr(), dp.data_ptr(), qd.data_ptr(), gp.data_ptr(),
-        gp_stride, qp.data_ptr(), qpi.data_ptr(), qp_stride,
-        *[t.data_ptr() for t in panels], y.data_ptr(), u.data_ptr(),
-        iters.data_ptr(), state.data_ptr(), N, M, B, int(max_iters),
-        int(check_every), int(accel_every), float(eaj), float(erj),
-        int(bool(strict)), float(den_eps), int(plan["resident"]),
-        build.stream_handle(dev))
-    build.check(code, "fused_full_solve_distinct")
-    fused_full_solve_distinct.launches += 1
+    with tracing.span("kernel.k5", device=dev):
+        code = lib.full_solve_distinct_f32(*args)
+        build.check(code, "fused_full_solve_distinct")
+        fused_full_solve_distinct.launches += 1
     return y.T, u.T, iters, state
 
 

@@ -54,6 +54,7 @@ from pqp_for_mpc_tpu_torch.ops.solve_kernel import (LANE_CERTIFIED,
                                                     fused_result)
 from pqp_for_mpc_tpu_torch.ops.tiled_kernel import STREAM_DTYPES
 from pqp_for_mpc_tpu_torch.solver import _as2d, _mv, _mvT
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 #: largest N of K7: the product's copy of one instance's y in shared memory
 K7_N_MAX = SMEM_LIMIT_BYTES // 4
@@ -281,14 +282,15 @@ def distinct_streamed_iterations(Q, theta, Fdn, Fdp, Y, num_iters: int,
     out = torch.empty_like(y)
     tmp = torch.empty_like(y) if num_iters > 1 else out
     blocks, resident = _k7_launch(N, B, mode, _sm_count(dev))
+    args = (q.data_ptr(), int(mode == "bfloat16"), th.data_ptr(),
+            fdn.data_ptr(), fdp.data_ptr(), y.data_ptr(), out.data_ptr(),
+            tmp.data_ptr(), N, B, int(num_iters), float(den_eps), blocks,
+            resident, build.stream_handle(dev))
     lib = build.load_library()
-    code = lib.pqp_iterations_distinct_tiled(
-        q.data_ptr(), int(mode == "bfloat16"), th.data_ptr(), fdn.data_ptr(),
-        fdp.data_ptr(), y.data_ptr(), out.data_ptr(), tmp.data_ptr(), N, B,
-        int(num_iters), float(den_eps), blocks, resident,
-        build.stream_handle(dev))
-    build.check(code, "distinct_streamed_iterations")
-    distinct_streamed_iterations.launches[mode] += 1
+    with tracing.span("kernel.k7", device=dev):
+        code = lib.pqp_iterations_distinct_tiled(*args)
+        build.check(code, "distinct_streamed_iterations")
+        distinct_streamed_iterations.launches[mode] += 1
     return out.T
 
 
@@ -476,20 +478,22 @@ def fused_full_solve_distinct_tiled(Qd, theta, Gp, Qp, Qp_inv, Fp, Fd, Fdp,
     plan = k6_plan(N, M, B, _sm_count(dev))
     xch = torch.empty(plan["slots"] * 2 * plan["exchange_floats"], **f32)
     arrive = torch.zeros(plan["slots"], dtype=torch.int32, device=dev)
+    qh = aligned(Qh)
+    args = (qh.data_ptr(), th.data_ptr(), gp.data_ptr(), gp_stride,
+            qp.data_ptr(), qpi.data_ptr(), qp_stride,
+            *[t.data_ptr() for t in panels], y.data_ptr(), u.data_ptr(),
+            iters.data_ptr(), state.data_ptr(), xch.data_ptr(),
+            arrive.data_ptr(), N, M, B, int(max_iters), int(check_every),
+            int(bool(accel)), float(eaj), float(erj), int(bool(strict)),
+            float(den_eps), int(bool(gap_comp)), plan["blocks_per_instance"],
+            plan["slots"], plan["resident_rows"], int(plan["staged"]),
+            plan["ranks"],
+            plan["exchange_floats"], build.stream_handle(dev))
     lib = build.load_library()
-    code = lib.full_solve_distinct_tiled_f32(
-        aligned(Qh).data_ptr(), th.data_ptr(), gp.data_ptr(), gp_stride,
-        qp.data_ptr(), qpi.data_ptr(), qp_stride,
-        *[t.data_ptr() for t in panels], y.data_ptr(), u.data_ptr(),
-        iters.data_ptr(), state.data_ptr(), xch.data_ptr(),
-        arrive.data_ptr(), N, M, B, int(max_iters), int(check_every),
-        int(bool(accel)), float(eaj), float(erj), int(bool(strict)),
-        float(den_eps), int(bool(gap_comp)), plan["blocks_per_instance"],
-        plan["slots"], plan["resident_rows"], int(plan["staged"]),
-        plan["ranks"],
-        plan["exchange_floats"], build.stream_handle(dev))
-    build.check(code, "fused_full_solve_distinct_tiled")
-    fused_full_solve_distinct_tiled.launches += 1
+    with tracing.span("kernel.k6", device=dev):
+        code = lib.full_solve_distinct_tiled_f32(*args)
+        build.check(code, "fused_full_solve_distinct_tiled")
+        fused_full_solve_distinct_tiled.launches += 1
     return y.T, u.T, iters, state
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from pqp_for_mpc_tpu_torch.ops import build
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 #: largest N the register-resident kernels take (their NMAX templates)
 N_MAX = 128
@@ -170,13 +171,14 @@ def fused_pqp_iterations(Qdn_theta: torch.Tensor, Qdp_theta: torch.Tensor,
     out = torch.empty_like(y)
     if B == 0:
         return out
+    args = (qdn.data_ptr(), qdp.data_ptr(), fdn.data_ptr(), fdp.data_ptr(),
+            fdn_lane, y.data_ptr(), out.data_ptr(), N, B, int(num_iters),
+            float(den_eps), build.stream_handle(dev))
     lib = build.load_library()
-    code = lib.pqp_iterations_f32(
-        qdn.data_ptr(), qdp.data_ptr(), fdn.data_ptr(), fdp.data_ptr(),
-        fdn_lane, y.data_ptr(), out.data_ptr(), N, B, int(num_iters),
-        float(den_eps), build.stream_handle(dev))
-    build.check(code, "fused_pqp_iterations")
-    fused_pqp_iterations.launches += 1
+    with tracing.span("kernel.k2", device=dev):
+        code = lib.pqp_iterations_f32(*args)
+        build.check(code, "fused_pqp_iterations")
+        fused_pqp_iterations.launches += 1
     return out
 
 

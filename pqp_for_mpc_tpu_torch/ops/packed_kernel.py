@@ -48,6 +48,7 @@ from pqp_for_mpc_tpu_torch.ops.solve_kernel import (LANE_CERTIFIED,
                                                     fused_inputs,
                                                     fused_result,
                                                     launch_engine)
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 #: the TPU's (8, 128) tile: sublane quantum and contraction depth
 _SUBLANE, _LANE = 8, 128
@@ -218,7 +219,8 @@ def fused_full_solve_packed_reference(Qdn_theta, Qdp_theta, Qd, Gp, Qp,
     st = torch.where(valid == 0.0, LANE_PADDING, LANE_MAX_ITERS).to(i32)
     it = torch.zeros((G, Bc), dtype=i32, device=dev)
     h = 1
-    while h <= max_iters and bool((st == LANE_MAX_ITERS).any()):
+    while h <= max_iters and tracing.sync((st == LANE_MAX_ITERS).any(),
+                                          "packed"):
         done_seg = st > 0
         ok_seg, _ = check(y)
         newly = ok_seg & ~done_seg

@@ -40,6 +40,7 @@ from pqp_for_mpc_tpu_torch.ops import build
 from pqp_for_mpc_tpu_torch.ops.kernels import (N_MAX, SMEM_LIMIT_BYTES,
                                                _matrix, _on_cuda, _panel,
                                                _round4)
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 LANE_MAX_ITERS, LANE_CERTIFIED, LANE_STALLED, LANE_PADDING = 0, 1, 2, 3
 
@@ -287,6 +288,11 @@ def fused_full_solve(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
                          Kp_slack, Mp, Md, Y0, **kw)
 
 
+#: the span of each C entry of the lane-tile engine (K1's, K8's)
+ENGINE_SPANS = {"full_solve_f32": "kernel.k1",
+                "full_solve_packed_f32": "kernel.k8"}
+
+
 def launch_engine(entry: str, wrapper, Qdn_theta, Qdp_theta, Qd, Gp, Qp,
                   Qp_inv, Fp, Fd, Fdp, Fdn, Kp_slack, Mp, Md, Y0, *,
                   max_iters: int, check_every: int, accel_every: int,
@@ -323,14 +329,15 @@ def launch_engine(entry: str, wrapper, Qdn_theta, Qdp_theta, Qd, Gp, Qp,
     args = [geo.data_ptr()]
     for t, lane in panels:
         args += [t.data_ptr(), lane]
-    code = getattr(build.load_library(), entry)(
-        *args, y.data_ptr(), u.data_ptr(), iters.data_ptr(),
-        state.data_ptr(), queue.data_ptr(), N, M, B, int(max_iters),
-        int(check_every), int(accel_every), float(eaj), float(erj),
-        int(bool(strict)), float(den_eps), int(bool(gap_comp)),
-        build.stream_handle(dev))
-    build.check(code, wrapper.__name__)
-    wrapper.launches += 1
+    args += [y.data_ptr(), u.data_ptr(), iters.data_ptr(), state.data_ptr(),
+             queue.data_ptr(), N, M, B, int(max_iters), int(check_every),
+             int(accel_every), float(eaj), float(erj), int(bool(strict)),
+             float(den_eps), int(bool(gap_comp)), build.stream_handle(dev)]
+    launch = getattr(build.load_library(), entry)
+    with tracing.span(ENGINE_SPANS[entry], device=dev):
+        code = launch(*args)
+        build.check(code, wrapper.__name__)
+        wrapper.launches += 1
     return y, u, iters, state
 
 

@@ -38,6 +38,7 @@ from pqp_for_mpc_tpu_torch.ops import build
 from pqp_for_mpc_tpu_torch.ops.kernels import (_aligned16, _matrix,
                                                _on_cuda, _panel)
 from pqp_for_mpc_tpu_torch.solver import _as2d
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 STREAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -198,15 +199,17 @@ def streamed_pqp_iterations(Q: torch.Tensor, theta: torch.Tensor,
         plan = k3_f32_plan(N, B)
         y = _aligned16(y)                   # the tile stages y by cp.async
     rows, lanes = plan["tile_rows"], plan["tile_lanes"]
+    args = (q.data_ptr(), int(mode == "bfloat16"), th.data_ptr(),
+            fdn.data_ptr(), fdp.data_ptr(), fdn_lane, y.data_ptr(),
+            out.data_ptr(), tmp.data_ptr(),
+            None if yb is None else yb[0].data_ptr(),
+            None if yb is None else yb[1].data_ptr(), N, B, int(num_iters),
+            float(den_eps), rows, lanes, build.stream_handle(dev))
     lib = build.load_library()
-    code = lib.pqp_iterations_tiled(
-        q.data_ptr(), int(mode == "bfloat16"), th.data_ptr(), fdn.data_ptr(),
-        fdp.data_ptr(), fdn_lane, y.data_ptr(), out.data_ptr(),
-        tmp.data_ptr(), None if yb is None else yb[0].data_ptr(),
-        None if yb is None else yb[1].data_ptr(), N, B, int(num_iters),
-        float(den_eps), rows, lanes, build.stream_handle(dev))
-    build.check(code, "streamed_pqp_iterations")
-    streamed_pqp_iterations.launches[mode] += 1
+    with tracing.span("kernel.k3", device=dev):
+        code = lib.pqp_iterations_tiled(*args)
+        build.check(code, "streamed_pqp_iterations")
+        streamed_pqp_iterations.launches[mode] += 1
     return out
 
 

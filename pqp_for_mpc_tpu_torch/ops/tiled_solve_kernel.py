@@ -46,6 +46,7 @@ from pqp_for_mpc_tpu_torch.ops.tiled_kernel import (FMA_THREADS,
                                                     fma_smem_bytes,
                                                     fma_tile_lanes,
                                                     streamed_matrix)
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 #: rows of one partial per-lane sum in the kernel (``kChunk``) and the most
 #: sums one of its lane phases carries (``kMaxSums``)
@@ -233,16 +234,17 @@ def fused_full_solve_tiled(Qd, theta, Gp, Qp, Qp_inv, Fp, Fd, Fdp, Fdn,
     scratch += [torch.empty((M, B), **f32),                   # v
                 torch.empty(4 * B, **f32),                    # lane
                 torch.empty(-(-(N + M) // _CHUNK) * _MAX_SUMS * B, **f32)]
+    args = (*[t.data_ptr() for t in mats + panels],
+            y.data_ptr(), u.data_ptr(), iters.data_ptr(), state.data_ptr(),
+            *[t.data_ptr() for t in scratch], N, M, B, int(max_iters),
+            int(check_every), int(bool(accel)), float(eaj), float(erj),
+            int(bool(strict)), float(den_eps), int(bool(gap_comp)),
+            build.stream_handle(dev))
     lib = build.load_library()
-    code = lib.full_solve_tiled_f32(
-        *[t.data_ptr() for t in mats + panels],
-        y.data_ptr(), u.data_ptr(), iters.data_ptr(), state.data_ptr(),
-        *[t.data_ptr() for t in scratch], N, M, B, int(max_iters),
-        int(check_every), int(bool(accel)), float(eaj), float(erj),
-        int(bool(strict)), float(den_eps), int(bool(gap_comp)),
-        build.stream_handle(dev))
-    build.check(code, "fused_full_solve_tiled")
-    fused_full_solve_tiled.launches += 1
+    with tracing.span("kernel.k4", device=dev):
+        code = lib.full_solve_tiled_f32(*args)
+        build.check(code, "fused_full_solve_tiled")
+        fused_full_solve_tiled.launches += 1
     return y, u, iters, state
 
 

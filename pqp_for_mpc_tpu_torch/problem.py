@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from pqp_for_mpc_tpu_torch.utils import tracing
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point builds on: ``device``, or ``"cuda"`` when
@@ -151,37 +153,38 @@ class CondensedMPCData:
         then ``Fp`` is ``(M, B)`` and ``Mp`` is ``(B,)``.  ``precision`` is
         accepted for the JAX signature and ignored (full float32).
         """
-        x = self.x if x is None else x
-        D = self.D if D is None else D
-        batched = x.dim() == 2 or D.dim() == 2
-        xc = x if x.dim() == 2 else x[:, None]          # (nState, B)
-        Dc = D if D.dim() == 2 else D[:, None]          # (nDis, B)
-        if xc.shape[-1] != Dc.shape[-1]:
-            b = max(xc.shape[-1], Dc.shape[-1])
-            xc = xc.expand(xc.shape[0], b)
-            Dc = Dc.expand(Dc.shape[0], b)
+        with tracing.span("build.assemble", device=self.Gp):
+            x = self.x if x is None else x
+            D = self.D if D is None else D
+            batched = x.dim() == 2 or D.dim() == 2
+            xc = x if x.dim() == 2 else x[:, None]          # (nState, B)
+            Dc = D if D.dim() == 2 else D[:, None]          # (nDis, B)
+            if xc.shape[-1] != Dc.shape[-1]:
+                b = max(xc.shape[-1], Dc.shape[-1])
+                xc = xc.expand(xc.shape[0], b)
+                Dc = Dc.expand(Dc.shape[0], b)
 
-        # Fp = Fp1 D + Fp2 x - Fp3            (PQP_CPU.c:373-382)
-        Fp = self.Fp1 @ Dc + self.Fp2 @ xc - self.Fp3[:, None]
-        # Mp per computeMp's actual arithmetic (PQP_CPU.c:395-428)
-        xMp1x = torch.einsum("sb,st,tb->b", xc, self.Mp1, xc)
-        DMp2x = torch.einsum("db,ds,sb->b", Dc, self.Mp2, xc)
-        Mp4x = (self.Mp4[None, :] @ xc)[0]
-        DMp3D = torch.einsum("db,de,eb->b", Dc, self.Mp3, Dc)
-        Mp5D = (self.Mp5[None, :] @ Dc)[0]
-        Mp = 0.5 * (xMp1x + DMp2x + Mp4x + DMp3D + Mp5D + self.Mp6)
+            # Fp = Fp1 D + Fp2 x - Fp3            (PQP_CPU.c:373-382)
+            Fp = self.Fp1 @ Dc + self.Fp2 @ xc - self.Fp3[:, None]
+            # Mp per computeMp's actual arithmetic (PQP_CPU.c:395-428)
+            xMp1x = torch.einsum("sb,st,tb->b", xc, self.Mp1, xc)
+            DMp2x = torch.einsum("db,ds,sb->b", Dc, self.Mp2, xc)
+            Mp4x = (self.Mp4[None, :] @ xc)[0]
+            DMp3D = torch.einsum("db,de,eb->b", Dc, self.Mp3, Dc)
+            Mp5D = (self.Mp5[None, :] @ Dc)[0]
+            Mp = 0.5 * (xMp1x + DMp2x + Mp4x + DMp3D + Mp5D + self.Mp6)
 
-        if Qp is None:
-            Qp = self.qp()
-        Kp = self.Kp
-        if self.Kx is not None:
-            Kp = Kp[:, None] + self.Kx @ xc
-            if self.Kd is not None:
-                Kp = Kp + self.Kd @ Dc
+            if Qp is None:
+                Qp = self.qp()
+            Kp = self.Kp
+            if self.Kx is not None:
+                Kp = Kp[:, None] + self.Kx @ xc
+                if self.Kd is not None:
+                    Kp = Kp + self.Kd @ Dc
+                if not batched:
+                    Kp = Kp[:, 0]
             if not batched:
-                Kp = Kp[:, 0]
-        if not batched:
-            Fp = Fp[:, 0]
-            Mp = Mp[0]
-        return PrimalQP(Qp=Qp, Qp_inv=self.Qp_inv, Fp=Fp, Mp=Mp,
-                        Gp=self.Gp, Kp=Kp)
+                Fp = Fp[:, 0]
+                Mp = Mp[0]
+            return PrimalQP(Qp=Qp, Qp_inv=self.Qp_inv, Fp=Fp, Mp=Mp,
+                            Gp=self.Gp, Kp=Kp)

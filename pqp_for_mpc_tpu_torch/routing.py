@@ -70,6 +70,7 @@ from pqp_for_mpc_tpu_torch.problem import DualQP, PrimalQP
 from pqp_for_mpc_tpu_torch.solver import (SolveResult, _as2d, _batch_of,
                                           retry_cold_solve, solve_batched,
                                           solve_mixed)
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 #: lane quantum below which the JAX package's map keeps the small-batch
 #: (receding-horizon) regime on the plain path
@@ -169,7 +170,16 @@ def solve_auto(primal: PrimalQP, dual: DualQP,
         raise ValueError(
             f"engine {engine!r} is a CUDA kernel and the problem lies on "
             f"{platform!r} — use engine='xla' or 'mixed'")
+    tracing.count("route." + engine)
+    with tracing.span("solve.auto"):
+        return _solve_on(engine, primal, dual, Y0, cfg, retry_cold, N, B)
 
+
+def _solve_on(engine: str, primal: PrimalQP, dual: DualQP,
+              Y0: Optional[torch.Tensor], cfg: SolverConfig,
+              retry_cold: bool, N: int, B: int) -> SolveResult:
+    """:func:`solve_auto` on the engine it chose."""
+    platform = dual.Qd.device.type
     if engine == "xla":
         return solve_batched(primal, dual, Y0=Y0, cfg=cfg,
                              retry_cold=retry_cold and Y0 is not None)

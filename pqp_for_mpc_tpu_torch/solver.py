@@ -44,6 +44,7 @@ import torch
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
 from pqp_for_mpc_tpu_torch.problem import DualQP, PrimalQP
+from pqp_for_mpc_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,7 +265,7 @@ def retry_cold_solve(solve_fn: Callable[[torch.Tensor], SolveResult],
     reset to ``Y_cold``, and merge per lane.  ``iters`` and costs of a
     retried lane report the attempt that produced its result."""
     res = solve_fn(Y_warm)
-    if bool(res.converged.all()):
+    if tracing.sync(res.converged.all(), "retry"):
         return res
     Y0 = torch.where(res.converged[None, :], res.Y, Y_cold)
     return merge_lanes(res.converged, res, solve_fn(Y0))
@@ -378,27 +379,30 @@ def _solve_core(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
     div = torch.zeros(B, dtype=torch.bool, device=dev)
     h = 1
     # one host sync per check: the JAX package's while-loop condition
-    while h <= cfg.max_iters and not bool(done.all()):
-        ok = check_terminate(primal, dual, Y, cfg)[0]
-        # divergence: a non-finite iterate never recovers under the
-        # multiplicative update — freeze the lane, stamping the freeze h
-        bad = ~torch.isfinite(Y).all(dim=0) & ~done
-        newly = ok & ~done & ~bad
-        iters = torch.where(newly | bad, h, iters)
-        done = done | ok | bad
-        div = div | bad
-        Y = run_updates(Y, done)
+    while h <= cfg.max_iters and not tracing.sync(done.all(), "solve"):
+        with tracing.span("solve.check"):
+            ok = check_terminate(primal, dual, Y, cfg)[0]
+            # divergence: a non-finite iterate never recovers under the
+            # multiplicative update — freeze the lane, stamping the freeze h
+            bad = ~torch.isfinite(Y).all(dim=0) & ~done
+            newly = ok & ~done & ~bad
+            iters = torch.where(newly | bad, h, iters)
+            done = done | ok | bad
+            div = div | bad
+        with tracing.span("solve.updates"):
+            Y = run_updates(Y, done)
         h += k
 
     # final check so exit diagnostics reflect the returned iterate
-    ok, U, feas, Jp, Jd = check_terminate(primal, dual, Y, cfg)
-    bad = ~torch.isfinite(Y).all(dim=0)
-    newly_bad = bad & ~done
-    div = div | newly_bad
-    newly = ok & ~done & ~bad
-    iters = torch.where(newly | newly_bad, h, iters)
-    done = done | ok | bad
-    iters = torch.where(done, iters, h).to(torch.int32)
+    with tracing.span("solve.check"):
+        ok, U, feas, Jp, Jd = check_terminate(primal, dual, Y, cfg)
+        bad = ~torch.isfinite(Y).all(dim=0)
+        newly_bad = bad & ~done
+        div = div | newly_bad
+        newly = ok & ~done & ~bad
+        iters = torch.where(newly | newly_bad, h, iters)
+        done = done | ok | bad
+        iters = torch.where(done, iters, h).to(torch.int32)
     return SolveResult(U=U, Y=Y, iters=iters, converged=done & ~div,
                        feasible=feas, Jp=Jp, Jd=Jd, diverged=div)
 
@@ -542,7 +546,7 @@ def solve_mixed(primal: PrimalQP, dual: DualQP,
     slow = torch.zeros(B, dtype=torch.int32, device=dev)
     h = 0
     # one host sync per check, as in solve_batched
-    while h <= cfg.max_iters and not bool(frozen.all()):
+    while h <= cfg.max_iters and not tracing.sync(frozen.all(), "mixed"):
         ok, _, _, Jp, Jd = check_terminate(primal, dual, Y, cfg)
         g = (complementarity_gap(dual, Y) if cfg.gap_from_complementarity
              else Jp + Jd).abs()

@@ -1,7 +1,6 @@
 """The port's ``utils/profiling.py`` on the CPU: ``trace`` writes a
-Chrome/Perfetto trace of the wrapped region, ``timed`` calls its thunk
-``warmup + repeats`` times and returns the best time and the last
-result."""
+Chrome/Perfetto trace of the wrapped region (its program spans:
+``tests/test_torch_tracing.py``)."""
 
 import json
 import os
@@ -10,7 +9,7 @@ import torch
 
 from pqp_for_mpc_tpu_torch import PrimalQP, SolverConfig, dualize
 from pqp_for_mpc_tpu_torch import solve_batched
-from pqp_for_mpc_tpu_torch.utils.profiling import timed, trace
+from pqp_for_mpc_tpu_torch.utils.profiling import trace
 
 
 def _problem():
@@ -35,16 +34,3 @@ def test_trace_writes_a_trace_of_the_region(tmp_path):
     assert any("matmul" in e.get("name", "") or "mm" == e.get("name", "")
                for e in events)
 
-
-def test_timed_calls_warmup_plus_repeats():
-    calls = []
-    primal, dual = _problem()
-
-    def thunk():
-        calls.append(1)
-        return solve_batched(primal, dual, cfg=SolverConfig(max_iters=50))
-
-    best, res = timed(thunk, repeats=3, warmup=2)
-    assert len(calls) == 5
-    assert 0.0 < best < 60.0
-    assert res.U.shape == (4, 3)
