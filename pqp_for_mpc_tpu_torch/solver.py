@@ -18,6 +18,27 @@ loop ``solveQuadraticDual``, PQP_CPU.c:694-750):
   (its matrix built once per solve).  On CPU tensors the kernels' plain
   versions run.
 
+CUDA graphs (:class:`_SolveGraphs`).  At a small batch each update or
+check is a chain of a few-microsecond kernels, and the host's launches set
+the pace.  There the loop's two blocks, the check with its verdict's
+bookkeeping and the updates between checks, replay as two CUDA graphs,
+captured once per solve key; the host loop, its one read of
+``done.all()`` per check, its ``max_iters`` test and its spans stay as
+they are.  ``h`` lives on the device (a 0-d int32 tensor the update block
+advances), so a replayed check stamps the current value.  The rule
+(:func:`graphs_engage`) reads only what the code can observe: CUDA
+tensors, a batch under the router's lane width (128), a plain body (no
+``use_pallas`` kernel), and a key solved before.  The key
+(:func:`_graph_key`) is the device, the shapes and dtypes, the cfg fields
+the body reads and the identity of the geometry (``Qd``, its splits,
+``theta``, ``Gp``, ``Qp``, ``Qp_inv``), which the graphs read in place; a
+control loop, whose controller keeps its geometry, captures on its second
+step, and a one-off solve never does.  The per-solve vectors and ``Y0``
+are copied into the graphs' buffers before the first replay, and the
+result is cloned out of them.  Eight keys are kept, least recently used
+dropped first.  Everywhere else (the CPU, B >= 128, ``use_pallas``) the
+same blocks run eagerly.
+
 Convergence test (``terminate``, PQP_CPU.c:673-687), as the JAX package:
 
 1. feasibility: ``Gp U <= Kp + max(erc*Kp, eac)`` elementwise;
@@ -36,7 +57,9 @@ ignored: products run in full float32.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import weakref
 from typing import Callable, Optional
 
 import numpy as np
@@ -323,13 +346,16 @@ def solve_batched(primal: PrimalQP, dual: DualQP,
     return _solve_core(primal, dual, Y0, cfg)
 
 
-def _solve_core(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
-                cfg: SolverConfig) -> SolveResult:
-    """The masked-lane loop on a normalized ``Y0 (N, B)``."""
+def _loop_blocks(primal: PrimalQP, dual: DualQP, cfg: SolverConfig):
+    """The two blocks of the solve loop over a :class:`_LoopState`, and
+    whether they are plain PyTorch (no K2 or K3 launch).
+
+    ``check``: the four-part test and its verdict's bookkeeping (``iters``
+    stamped with ``h``, ``done``, ``div``); returns ``(U, feas, Jp, Jd)``.
+    ``updates``: ``check_every`` updates under the ``done`` mask, then
+    ``h += check_every``.  Each replaces the state's tensors it changes."""
     N = dual.n_con
-    B = Y0.shape[1]
     k = cfg.check_every
-    dev = Y0.device
 
     # the update kernels take shared geometry; on 3-D Qd use_pallas is
     # ignored, as in the JAX package
@@ -373,38 +399,262 @@ def _solve_core(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
             Y = accel_step(dual, Y, done)
         return Y
 
-    Y = Y0
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    div = torch.zeros(B, dtype=torch.bool, device=dev)
-    h = 1
-    # one host sync per check: the JAX package's while-loop condition
-    while h <= cfg.max_iters and not tracing.sync(done.all(), "solve"):
-        with tracing.span("solve.check"):
-            ok = check_terminate(primal, dual, Y, cfg)[0]
-            # divergence: a non-finite iterate never recovers under the
-            # multiplicative update — freeze the lane, stamping the freeze h
-            bad = ~torch.isfinite(Y).all(dim=0) & ~done
-            newly = ok & ~done & ~bad
-            iters = torch.where(newly | bad, h, iters)
-            done = done | ok | bad
-            div = div | bad
-        with tracing.span("solve.updates"):
-            Y = run_updates(Y, done)
-        h += k
+    def check(st: _LoopState):
+        ok, U, feas, Jp, Jd = check_terminate(primal, dual, st.Y, cfg)
+        # divergence: a non-finite iterate never recovers under the
+        # multiplicative update — freeze the lane, stamping the freeze h
+        bad = ~torch.isfinite(st.Y).all(dim=0) & ~st.done
+        newly = ok & ~st.done & ~bad
+        st.iters = torch.where(newly | bad, st.h, st.iters)
+        st.done = st.done | ok | bad
+        st.div = st.div | bad
+        return U, feas, Jp, Jd
 
-    # final check so exit diagnostics reflect the returned iterate
+    def updates(st: _LoopState):
+        st.Y = run_updates(st.Y, st.done)
+        st.h = st.h + k
+
+    return not use_kernel, check, updates
+
+
+@dataclasses.dataclass
+class _LoopState:
+    """The solve loop's state between its blocks.  ``h`` (the iteration a
+    check stamps) is a 0-d int32 tensor on the solve's device, so that a
+    captured check stamps the value of the current replay."""
+
+    Y: torch.Tensor          # (N, B)
+    done: torch.Tensor       # (B,) bool
+    iters: torch.Tensor      # (B,) int32
+    div: torch.Tensor        # (B,) bool
+    h: torch.Tensor          # () int32
+
+    @classmethod
+    def start(cls, Y0: torch.Tensor) -> "_LoopState":
+        B, dev = Y0.shape[1], Y0.device
+        lanes = lambda dt: torch.zeros(B, dtype=dt, device=dev)
+        return cls(Y0, lanes(torch.bool), lanes(torch.int32),
+                   lanes(torch.bool),
+                   torch.ones((), dtype=torch.int32, device=dev))
+
+
+def _solve_core(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
+                cfg: SolverConfig) -> SolveResult:
+    """The masked-lane loop on a normalized ``Y0 (N, B)``: a check, then
+    ``check_every`` updates, until every lane is done or ``h`` passes
+    ``max_iters``; then a final check.  Where :func:`graphs_engage` holds,
+    both blocks replay CUDA graphs (:class:`_SolveGraphs`)."""
+    plain, check, updates = _loop_blocks(primal, dual, cfg)
+    graphs = _graphs_for(primal, dual, Y0, cfg, plain)
+    if graphs is None:
+        st = _LoopState.start(Y0)
+    else:
+        st = graphs.load(primal, dual, Y0)
+        check, updates = graphs.check, graphs.updates
+    h = 1
+    # one host sync per check: the JAX package's while-loop condition; the
+    # host keeps its own h for the max_iters test
+    while h <= cfg.max_iters and not tracing.sync(st.done.all(), "solve"):
+        with tracing.span("solve.check"):
+            check(st)
+        with tracing.span("solve.updates"):
+            updates(st)
+        h += cfg.check_every
+
+    # final check so exit diagnostics reflect the returned iterate: the
+    # loop's own (a lane already done keeps its stamp and verdict), then
+    # every lane still running stamped with the exit h
     with tracing.span("solve.check"):
-        ok, U, feas, Jp, Jd = check_terminate(primal, dual, Y, cfg)
-        bad = ~torch.isfinite(Y).all(dim=0)
-        newly_bad = bad & ~done
-        div = div | newly_bad
-        newly = ok & ~done & ~bad
-        iters = torch.where(newly | newly_bad, h, iters)
-        done = done | ok | bad
-        iters = torch.where(done, iters, h).to(torch.int32)
-    return SolveResult(U=U, Y=Y, iters=iters, converged=done & ~div,
-                       feasible=feas, Jp=Jp, Jd=Jd, diverged=div)
+        U, feas, Jp, Jd = check(st)
+        iters = torch.where(st.done, st.iters, st.h)
+    res = SolveResult(U=U, Y=st.Y, iters=iters, converged=st.done & ~st.div,
+                      feasible=feas, Jp=Jp, Jd=Jd, diverged=st.div)
+    return res if graphs is None else graphs.own(res)
+
+
+def graphs_engage(device_type: str, batch: int, plain: bool,
+                  seen: bool) -> bool:
+    """Whether a solve's loop replays CUDA graphs: on CUDA, at a batch
+    under the router's lane width (there a launch costs more than the work
+    it starts), with a plain body (``plain``: no K2 or K3 wrapper, which
+    launch through ctypes on their own stream), and only for a key solved
+    before (``seen``), so a one-off solve never pays for a capture."""
+    from pqp_for_mpc_tpu_torch.routing import _LANE
+    return device_type == "cuda" and batch < _LANE and plain and seen
+
+
+#: the cfg fields the loop's body reads (max_iters is the host's test)
+_BODY_FIELDS = ("erc", "eac", "eaj", "erj", "check_every", "accel_every",
+                "strict_weak_duality", "gap_from_complementarity",
+                "feas_from_dual_gradient", "den_eps")
+#: solve keys kept, least recently used dropped first
+GRAPH_KEYS = 8
+_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+#: one side stream per device for every warm-up and capture: cuBLAS keeps a
+#: workspace (32 MiB on Hopper) for each stream it has run on
+_CAPTURE_STREAMS: dict = {}
+
+
+def _geometry(primal: PrimalQP, dual: DualQP) -> tuple:
+    """The inputs a solve's graphs read in place (None where absent)."""
+    return (dual.Qd, dual.Qdn_theta, dual.Qdp_theta, dual.theta, primal.Gp,
+            primal.Qp, primal.Qp_inv)
+
+
+def _per_solve(primal: PrimalQP, dual: DualQP) -> tuple:
+    """The inputs copied into a solve's graphs before the first replay."""
+    return (dual.Fd, dual.Fdn, dual.Fdp, dual.Md, primal.Fp, primal.Mp,
+            primal.Kp)
+
+
+def _graph_key(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
+               cfg: SolverConfig):
+    """The key of a solve's graphs: the device, the identity of the
+    geometry, every input's shape and dtype (N, M, B, which vectors are
+    batched) and the cfg fields the body reads.  None where an input is
+    not a tensor on ``Y0``'s device or asks for a gradient."""
+    dev = Y0.device
+    geo = _geometry(primal, dual)
+    ts = _per_solve(primal, dual) + (Y0,) + tuple(
+        t for t in geo if t is not None)
+    for t in ts:
+        if not isinstance(t, torch.Tensor) or t.device != dev or (
+                t.requires_grad and torch.is_grad_enabled()):
+            return None
+    return (dev, tuple(map(id, geo)),
+            tuple((t.shape, t.dtype) for t in ts),
+            tuple(getattr(cfg, f) for f in _BODY_FIELDS))
+
+
+class _KeyEntry:
+    """A solve key seen before: weak references to its geometry (a dead
+    one means its id now names another tensor) and, once captured, the
+    graphs and the places they read the geometry from.  The cache keeps no
+    caller's geometry alive: a graph replays only while the very tensors
+    it was captured on live at the same places.  A write into them in
+    place is read by the next replay, as by an eager solve."""
+
+    __slots__ = ("refs", "places", "graphs")
+
+    def __init__(self, geo: tuple):
+        self.refs = tuple(None if t is None else weakref.ref(t)
+                          for t in geo)
+        self.places = self.graphs = None
+
+    def alive(self) -> bool:
+        return all(r is None or r() is not None for r in self.refs)
+
+
+def _graphs_for(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
+                cfg: SolverConfig, plain: bool):
+    """The :class:`_SolveGraphs` of this solve where
+    :func:`graphs_engage` holds (captured here on the second solve of a
+    key, or anew where the geometry moved), else None.  Records the key
+    of a first solve."""
+    if not graphs_engage(Y0.device.type, Y0.shape[1], plain, seen=True):
+        return None                     # no solve of this kind engages
+    key = _graph_key(primal, dual, Y0, cfg)
+    if key is None:
+        return None
+    geo = _geometry(primal, dual)
+    entry = _GRAPHS.get(key)
+    seen = entry is not None and entry.alive()
+    if not graphs_engage(Y0.device.type, Y0.shape[1], plain, seen):
+        for k in [k for k, e in _GRAPHS.items() if not e.alive()]:
+            del _GRAPHS[k]
+        _GRAPHS[key] = _KeyEntry(geo)
+        while len(_GRAPHS) > GRAPH_KEYS:
+            _GRAPHS.popitem(last=False)
+        return None
+    _GRAPHS.move_to_end(key)
+    # where each geometry tensor's data lies, as the graphs read it
+    places = tuple(None if t is None else (t.data_ptr(), t.stride())
+                   for t in geo)
+    if entry.graphs is None or entry.places != places:
+        entry.graphs = None             # free the old pools first
+        entry.graphs = _SolveGraphs(primal, dual, Y0, cfg)
+        entry.places = places
+    return entry.graphs
+
+
+def _into(block, st: _LoopState):
+    """Run ``block`` on a copy of ``st``, then write each state tensor it
+    replaced back into ``st``'s own: a graph's state stays at its
+    addresses from replay to replay."""
+    new = dataclasses.replace(st)
+    out = block(new)
+    for f in dataclasses.fields(st):
+        old, cur = getattr(st, f.name), getattr(new, f.name)
+        if cur is not old:
+            old.copy_(cur)
+    return out
+
+
+class _SolveGraphs:
+    """The check and update blocks of one solve key as two CUDA graphs
+    over static buffers: the per-solve inputs (:func:`_per_solve`, copied
+    in by :meth:`load`), the loop's state and the check's outputs.  The
+    geometry (:func:`_geometry`) is read in place.  Captured after one
+    warm-up round on the device's side stream (cuBLAS's handle and
+    workspace), on that stream, each into a private memory pool."""
+
+    def __init__(self, primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
+                 cfg: SolverConfig):
+        dev = Y0.device
+        fresh = lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev)
+        self.inputs = [fresh(t) for t in _per_solve(primal, dual)]
+        Fd, Fdn, Fdp, Md, Fp, Mp, Kp = self.inputs
+        _, check, updates = _loop_blocks(
+            dataclasses.replace(primal, Fp=Fp, Mp=Mp, Kp=Kp),
+            dataclasses.replace(dual, Fd=Fd, Fdn=Fdn, Fdp=Fdp, Md=Md), cfg)
+        self.st = _LoopState.start(fresh(Y0))
+        self.load(primal, dual, Y0)
+        if dev not in _CAPTURE_STREAMS:
+            _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        side = _CAPTURE_STREAMS[dev]
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _into(check, self.st)
+            _into(updates, self.st)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.g_check = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.g_check, stream=side):
+            self.out = _into(check, self.st)
+        self.g_updates = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.g_updates, stream=side):
+            _into(updates, self.st)
+        tracing.count("graph.capture")
+
+    def load(self, primal: PrimalQP, dual: DualQP,
+             Y0: torch.Tensor) -> _LoopState:
+        """Copy a solve's inputs in and reset the loop's state."""
+        for buf, t in zip(self.inputs, _per_solve(primal, dual)):
+            buf.copy_(t)
+        st = self.st
+        st.Y.copy_(Y0)
+        st.done.zero_()
+        st.iters.zero_()
+        st.div.zero_()
+        st.h.fill_(1)
+        return st
+
+    def check(self, st: _LoopState):
+        tracing.count("graph.replay")
+        self.g_check.replay()
+        return self.out
+
+    def updates(self, st: _LoopState) -> None:
+        tracing.count("graph.replay")
+        self.g_updates.replay()
+
+    @staticmethod
+    def own(res: SolveResult) -> SolveResult:
+        """``res`` with every field that lies in a graph's buffers cloned:
+        a later replay never rewrites a returned result."""
+        return dataclasses.replace(
+            res, U=res.U.clone(), Y=res.Y.clone(),
+            feasible=res.feasible.clone(), Jp=res.Jp.clone(),
+            Jd=res.Jd.clone(), diverged=res.diverged.clone())
 
 
 def solve_mixed(primal: PrimalQP, dual: DualQP,

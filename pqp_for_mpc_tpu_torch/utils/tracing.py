@@ -32,8 +32,13 @@ The spans and counters at the layer boundaries:
                             ``route.<engine>``
 ``solve.check``             each check of ``solver._solve_core`` (the check
                             and its verdict's bookkeeping), the final one
-                            included
-``solve.updates``           each round of updates of ``_solve_core``
+                            included; counter ``graph.replay`` where it
+                            replays the check's CUDA graph
+``solve.updates``           each round of updates of ``_solve_core``;
+                            counter ``graph.replay`` where it replays the
+                            updates' graph; counter ``graph.capture`` at
+                            each capture of a solve key's two graphs
+                            (``solver._SolveGraphs``)
 ``sync``                    each blocking read through :func:`sync`;
                             counters ``sync`` and ``sync.<site>``
 ``kernel.k1`` … ``k8``      each kernel launch (device-timed)
