@@ -6,7 +6,15 @@ file of its own that the harness finds by name (:class:`Bench`):
 * ``configs/<config>.json`` (the file ``BENCHMARK.json`` names): the
   configuration as run, with its ``kind``; ``problems/<kind>.py`` builds it
   for the program and drives the program's entries, ``reference/<kind>.py``
-  builds the same QPs for the plain reference (``reference/pqp.py``);
+  builds the same QPs for the plain reference (``reference/pqp.py``):
+  ``qp(conf, lanes, device)`` returns ``(Qp, Gp, Fp, Kp, Mp)`` in float64
+  for the lanes' inputs (each a tensor whose last axis is the lane), with
+  ``Fp`` (M, B), ``Kp`` (N, B), ``Mp`` (B,), and ``Qp`` and ``Gp`` either
+  shared, (M, M) and (N, M), or per lane, (B, M, M) and (B, N, M), in any
+  combination; ``scale(conf, U_ref)`` gives each lane's measure of an
+  error.  The shapes ``qp`` returns are all that tells the harness that
+  lanes have geometries of their own: it then solves them in blocks of
+  as many lanes as :data:`REF_BYTES` holds (:func:`ref_blocks`);
 * ``traffic/<mix>.json``: the mix's parameters, read by the two general
   runners below (``"mode": "batch"``, cold batches back to back;
   ``"mode": "loop"``, a warm closed loop one step after another);
@@ -55,8 +63,11 @@ COUNTERS = {
     "k7": ("ops.distinct_tiled_kernel", "distinct_streamed_iterations"),
     "k8": ("ops.packed_kernel", "fused_full_solve_packed"),
 }
-#: lanes per block of the reference
+#: lanes per block of the reference where every lane shares one geometry
 REF_BLOCK = 512
+#: float64 bytes of the per-lane matrices a block of the reference holds
+#: where lanes have geometries of their own (:func:`lane_bytes`)
+REF_BYTES = 4 << 30
 
 
 def log(*args) -> None:
@@ -273,14 +284,44 @@ def counters() -> dict:
     return out
 
 
+def lane_bytes(n_con: int, n_var: int) -> int:
+    """Float64 bytes that one lane with a geometry of its own holds in the
+    reference: ``Qd`` and its two splits, ``Gp Qp^-1``, its ``Gp``, ``Qp``
+    and ``Qp^-1``, and the KKT finish's host copies of ``Qd`` and ``Gp``
+    (164 MB at N = 2048, M = 512)."""
+    N, M = n_con, n_var
+    return 8 * (4 * N * N + 3 * N * M + 2 * M * M)
+
+
+def ref_blocks(ref, conf, lanes: dict, device, shared):
+    """The reference's blocks of ``lanes``: ``(first lane, the block's
+    inputs, ref.qp of them)``.  Lanes that share one geometry come
+    ``shared`` to a block (all in one where ``shared`` is None); lanes
+    with geometries of their own, as many as :data:`REF_BYTES` holds.
+    ``ref.qp`` of the first lane tells which."""
+    K = next(iter(lanes.values())).shape[-1]
+    Qp, Gp = ref.qp(conf, {k: v[..., :1] for k, v in lanes.items()},
+                    device)[:2]
+    if Qp.dim() == 3 or Gp.dim() == 3:
+        size = max(1, REF_BYTES // lane_bytes(*Gp.shape[-2:]))
+    else:
+        size = shared or K
+    for a in range(0, K, size):
+        blk = {k: v[..., a:a + size] for k, v in lanes.items()}
+        yield a, blk, ref.qp(conf, blk, device)
+
+
 def control_solver(ref, conf, settings, device, dtype=torch.bfloat16):
     """The control: the reference at ``dtype`` in the program's place,
     solving each step's lanes with the configuration's algorithm and
-    certificate."""
+    certificate (in one block where the lanes share one geometry)."""
     def solve(lanes):
-        Qp, Gp, Fp, Kp, Mp = ref.qp(conf, lanes(), device)
-        dual = pqp.Dual(Qp, Gp, Fp, Kp, Mp, settings["theta_floor"], dtype)
-        U, iters, done = pqp.certified(dual, settings)
+        out = []
+        for _, _, qp in ref_blocks(ref, conf, lanes(), device, None):
+            dual = pqp.Dual(*qp, settings["theta_floor"], dtype)
+            out.append(pqp.certified(dual, settings))
+            del dual
+        U, iters, done = (torch.cat(x, -1) for x in zip(*out))
         return types.SimpleNamespace(U=U.float(), Y=None, iters=iters,
                                      converged=done)
     return solve
@@ -290,27 +331,38 @@ def compare(ref, conf, settings, rows, samples, device,
             answer=None) -> tuple:
     """The comparison that decides ``correct``: every sampled answer
     against the float64 reference, re-solved from the same inputs (or, with
-    ``answer``, the answers ``answer(lanes)`` gives on those inputs).
-    Returns ({"u_err": the worst lane's max |U - U_ref| / scale}, lanes
-    compared, lanes the reference left unverified)."""
+    ``answer``, the answers ``answer(lanes)`` gives on those inputs), in
+    the blocks of :func:`ref_blocks`.  Returns ({"u_err": the worst lane's
+    max |U - U_ref| / scale}, lanes compared, lanes the reference left
+    unverified)."""
     lanes = {k: torch.cat([s[0][k].to(device, torch.float64)
-                           for s in samples], dim=1) for k in samples[0][0]}
+                           for s in samples], dim=-1) for k in samples[0][0]}
     out = torch.cat([s[1].to(device, torch.float64) for s in samples], 1)
     K = out.shape[1]
     worst, unverified = 0.0, 0
-    for a in range(0, K, REF_BLOCK):
-        blk = {k: v[:, a:a + REF_BLOCK] for k, v in lanes.items()}
-        Qp, Gp, Fp, Kp, Mp = ref.qp(conf, blk, device)
-        dual = pqp.Dual(Qp, Gp, Fp, Kp, Mp, settings["theta_floor"],
-                        torch.float64)
+    for a, blk, qp in ref_blocks(ref, conf, lanes, device, REF_BLOCK):
+        dual = pqp.Dual(*qp, settings["theta_floor"], torch.float64)
         U_ref, unv = pqp.exact(dual, settings)
+        del dual
         unverified += unv
-        got = (out[:, a:a + REF_BLOCK] if answer is None
+        got = (out[:, a:a + U_ref.shape[1]] if answer is None
                else answer(lambda: blk).U[rows].to(torch.float64))
         err = (got - U_ref[rows]).abs().amax(0) / ref.scale(conf, U_ref)
         # a NaN answer is as wrong as can be
         worst = max(worst, float(torch.nan_to_num(err, nan=torch.inf).max()))
     return {"u_err": worst}, K, unverified
+
+
+def route_counts() -> dict:
+    """The program's ``route.<engine>`` counters so far, by engine (none
+    for a program without its tracing module)."""
+    try:
+        from pqp_for_mpc_tpu_torch.utils import tracing
+    except ImportError:
+        return {}
+    return {k[len("route."):]: v
+            for k, v in tracing.snapshot()["counters"].items()
+            if k.startswith("route.")}
 
 
 def run(bench: Bench, cell_name: str, seed: int, seconds: float,
@@ -359,18 +411,21 @@ def run(bench: Bench, cell_name: str, seed: int, seconds: float,
     wall = time.perf_counter() - t0
     launches = {k: v - before.get(k, 0) for k, v in counters().items()}
 
-    trace_summary = None
+    trace_summary = routes = None
     if trace:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         seg = Recorder(device, marks=True)
+        routed = route_counts()
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(traffic["trace_steps"]):
                 drv.step(seg, tag="trace")
             _sync(device)
         trace_summary = tr.reduce(prof, seg.steps)
         del prof
+        routes = {k: v - routed.get(k, 0) for k, v in route_counts().items()
+                  if v > routed.get(k, 0)}
 
     dev_info = {"platform": "gpu" if device.type == "cuda" else device.type,
                 "kind": (torch.cuda.get_device_name(device)
@@ -407,8 +462,12 @@ def run(bench: Bench, cell_name: str, seed: int, seconds: float,
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
         elif not trace:
             raise RuntimeError(f"end-to-end metric {m['name']} read nothing")
-    info = {"route": problem.route(traffic["lanes"], mode == "loop"),
-            "launches": launches}
+    # traced: the engines the program counted in the traced window, the
+    # most used first; untraced: the engine the router picks for the cell
+    route = (problem.route(traffic["lanes"], mode == "loop")
+             if routes is None else
+             "+".join(sorted(routes, key=routes.get, reverse=True)) or None)
+    info = {"route": route, "launches": launches}
 
     # the program's state is freed before the reference runs
     samples, rows = rec.samples, drv.rows

@@ -10,8 +10,8 @@ Prints one JSON line last on standard output: ``correct``, ``attempted``,
 ``breakdown``), and ``checks`` last: each number the comparison with the
 float64 reference computed, beside its limit; those numbers are also the
 last lines of standard error.  With ``--trace 1`` an earlier line gives
-the route the program picked and its kernel launch counters over the
-window.  Exits non-zero and prints no result without a CUDA device, or if
+the engines the program's router counted over the traced window and its
+kernel launch counters over the measured window.  Exits non-zero and prints no result without a CUDA device, or if
 JAX or the JAX package was loaded.
 """
 
