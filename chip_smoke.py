@@ -38,8 +38,15 @@ at full size and times them:
   bits (K1 and K8 launch one engine, ``csrc/lane_tile_solve.cuh``: a
   register tile over 4 rows x 4 lanes for every product and a persistent
   grid that refills a lane slot from a global queue as its lane retires);
+* K1's dual-gradient instantiation (``MPC_CONFIG``, the controller's
+  route) against its plain version on the warm loop's shape (N = 28,
+  M = 7: cold and warm at 2^16 lanes, warm at one lane) and the H = 16
+  shape (N = 64: cold at 4,096 lanes, warm at one);
 * the H = 16 closed loop through ``MPCController.rollout_jit`` (the loop
-  kept on the card, 200 steps) timed against ``rollout``;
+  kept on the card, 200 steps, each step one K1 launch under
+  ``MPC_CONFIG``'s dual-gradient certificate) timed against ``rollout`` on
+  the plain engine, and the controller's fan-out step of 4,096 states,
+  one K1 launch too;
 * the stage-wise long-horizon backend (no hand-written kernel lies on it:
   every kernel counter is read before and after its phases and must not
   move): ``examples/long_horizon_mpc.py 512 30``'s closed loop through
@@ -1437,6 +1444,134 @@ def parallel_paths(dev, smi: str, main_plain: dict, big_plain: dict,
          nvidia_smi=smi)
 
 
+#: K1's dual-gradient instantiation against its plain version: (name,
+#: horizon, reference r, batch, warm) -- the warm loop's shape (N = 28,
+#: M = 7) at one lane and at B_CMP, and the H = 16 shape (N = 64, M = 16)
+#: of the controller's fan-out step and its closed loop
+K1_DUAL_CASES = [("n28_cold", 7, 2.5, B_CMP, False),
+                 ("n28_warm", 7, 2.5, B_CMP, True),
+                 ("n28_warm_b1", 7, 2.5, 1, True),
+                 ("n64_cold", 16, 0.0, B_N64, False),
+                 ("n64_warm_b1", 16, 0.0, 1, True)]
+
+
+def k1_dual_gradient_paths(dev, smi: str) -> list:
+    """K1 under ``MPC_CONFIG`` (the dual-gradient certificate, with
+    acceleration) against its plain version, on each of
+    :data:`K1_DUAL_CASES`; a warm start is the plain solve's multipliers on
+    the next draw of states (seed 1), floored at 1e-6.  Held to
+    :func:`solve_parity`'s bars with acceleration (lane states equal,
+    the iteration bar on 99% of lanes, U within 5e-3 * max(1, |U|max));
+    at N = 64 to :func:`accel_h16_parity`'s, the bars of the accelerated
+    H = 16 loop (K8's ``n64_accel`` case: on an H100 one lane of the
+    4,096 cold ones ends in another state, as there); to
+    :func:`k1_parity`'s verdicts through the rescue on >= 99.9% of
+    lanes; and the launch repeated to the bit.  Returns the U errors."""
+    import torch
+    from pqp_for_mpc_tpu_torch import solve_batched
+    from pqp_for_mpc_tpu_torch.bench import example_workload
+    from pqp_for_mpc_tpu_torch.config import MPC_CONFIG
+    from pqp_for_mpc_tpu_torch.ops import solve_kernel
+    cfg, errs = MPC_CONFIG, []
+    for name, H, r, B, warm in K1_DUAL_CASES:
+        primal, dual = example_workload(B, dev, seed=0, horizon=H, r=r)
+        Y0 = None
+        if warm:
+            prev = solve_batched(*example_workload(B, dev, seed=1,
+                                                   horizon=H, r=r), cfg=cfg)
+            Y0 = torch.clamp(prev.Y, min=1e-6)
+        args, kw = solve_kernel.fused_inputs(primal, dual, Y0, cfg)
+        require(kw.get("feas_dual") is True,
+                f"K1 ({name}): fused_inputs did not ask for the "
+                f"dual-gradient test")
+        before = solve_kernel.fused_full_solve.launches
+        out_k = solve_kernel.fused_full_solve(*args, **kw)
+        out_p = solve_kernel.fused_full_solve_reference(*args, **kw)
+        again = solve_kernel.fused_full_solve(*args, **kw)
+        torch.cuda.synchronize()
+        require(solve_kernel.fused_full_solve.launches == before + 2,
+                "K1 launch counter did not move")
+        if dual.n_con == 64:
+            cmp = accel_h16_parity(out_k, out_p, cfg.check_every)
+        else:
+            cmp = solve_parity(out_k, out_p, cfg.check_every, accel=True)
+        verdicts = k1_parity(primal, dual, cfg, out_k, out_p)
+        cmp["converged_agree"] = verdicts["converged_agree"]
+        cmp["repeats_bits"] = bits_equal(out_k, again)
+        emit("k1_dual_gradient_vs_plain", case=name, n=dual.n_con,
+             m=primal.n_var, batch=B, warm=warm, nvidia_smi=smi, **cmp)
+        require(cmp["ok"] and cmp["converged_agree"] >= 0.999,
+                f"K1's dual-gradient test ({name}) disagrees with its "
+                f"plain version: {cmp}")
+        require(cmp["repeats_bits"], f"K1 ({name}) did not repeat its bits")
+        errs.append(cmp["max_abs_err"])
+        del primal, dual, Y0, args, out_k, out_p, again
+    torch.cuda.empty_cache()
+    return errs
+
+
+def closed_loop_h16(dev, smi: str) -> None:
+    """The H = 16 closed loop kept on the card (``rollout_jit``, routed:
+    each step one K1 launch under ``MPC_CONFIG``'s dual-gradient
+    certificate) against the host loop (``rollout``) on the plain engine
+    (``engine="xla"``), each certified at every step, u within the U bar,
+    the iteration bar on 26 of 30 steps' share and mean iterations within
+    10% (the bars of tests/test_torch_rollout.py); both timed."""
+    import torch
+    import pqp_for_mpc_tpu_torch.models.mpc as mpc_module
+    from pqp_for_mpc_tpu_torch.bench import example_spec
+    from pqp_for_mpc_tpu_torch.config import MPC_CONFIG
+    from pqp_for_mpc_tpu_torch.models import MPCController
+    from pqp_for_mpc_tpu_torch.ops import solve_kernel
+    auto = mpc_module.solve_auto
+    loop, k1 = {}, {}
+    for name in ("rollout_jit", "rollout"):
+        if name == "rollout":
+            mpc_module.solve_auto = (
+                lambda *a, **k: auto(*a, engine="xla", **k))
+        try:
+            ctrl = MPCController(example_spec(16, 0.0), device=dev)
+            getattr(ctrl, name)([2.0, 0.0], 5)            # warm-up
+            ctrl.reset()
+            torch.cuda.synchronize()
+            before = solve_kernel.fused_full_solve.launches
+            t0 = time.perf_counter()
+            loop[name] = getattr(ctrl, name)([2.0, 0.0], LOOP_STEPS)
+            torch.cuda.synchronize()
+            loop[name]["seconds"] = time.perf_counter() - t0
+            k1[name] = solve_kernel.fused_full_solve.launches - before
+        finally:
+            mpc_module.solve_auto = auto
+    lj, lh = loop["rollout_jit"], loop["rollout"]
+    tol_u = 5e-3 * max(1.0, float(np.abs(lh["u"]).max()))
+    bar = np.maximum(5, lh["iters"] // 5)
+    bar = -(-bar // MPC_CONFIG.check_every) * MPC_CONFIG.check_every
+    in_bar = float((np.abs(lj["iters"] - lh["iters"]) <= bar).mean())
+    du = float(np.abs(lj["u"] - lh["u"]).max())
+    emit("closed_loop_h16_rollout_jit", steps=LOOP_STEPS, nvidia_smi=smi,
+         steps_per_s_rollout_jit=LOOP_STEPS / lj["seconds"],
+         steps_per_s_rollout=LOOP_STEPS / lh["seconds"],
+         k1_launches_rollout_jit=k1["rollout_jit"],
+         k1_launches_rollout=k1["rollout"],
+         certified_rollout_jit=int(lj["converged"].sum()),
+         certified_rollout=int(lh["converged"].sum()),
+         iters_mean_rollout_jit=float(lj["iters"].mean()),
+         iters_mean_rollout=float(lh["iters"].mean()),
+         iters_in_bar=in_bar, max_abs_err_u=du, tol_u=tol_u,
+         max_abs_err_x=float(np.abs(lj["x"] - lh["x"]).max()))
+    require(k1["rollout_jit"] == LOOP_STEPS and k1["rollout"] == 0,
+            f"the H=16 loops' K1 launches: {k1}")
+    require(bool(lj["converged"].all()),
+            "rollout_jit left a step of the H=16 loop uncertified")
+    require(bool(lh["converged"].all()),
+            "rollout left a step of the H=16 loop uncertified")
+    require(du <= tol_u and in_bar >= 26 / 30
+            and abs(lj["iters"].mean() - lh["iters"].mean())
+            <= 0.1 * lh["iters"].mean(),
+            "rollout_jit on K1 and rollout on the plain engine disagree on "
+            "the H=16 loop")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1520,6 +1655,10 @@ def main() -> int:
     errs = {"k1": [k1_cmp["max_abs_err"]], "k2": [k2_cmp["max_abs_err"]]}
     del primal, dual, Y, got, want, out_k, out_p, args
     torch.cuda.empty_cache()
+
+    # -- phase 3c: K1's dual-gradient instantiation (MPC_CONFIG, the
+    #    controller's route) against its plain version ------------------
+    errs["k1"] += k1_dual_gradient_paths(dev, smi)
 
     # -- phase 3b: K8 (packed whole solve) against its plain version, at
     #    N=28 (G=4) on B_CMP lanes and N=64 (G=2) on the H=16 workload --
@@ -1657,57 +1796,26 @@ def main() -> int:
          iters_max=int(out["iters"].max()),
          x_final=out["x"][-1].tolist(), ok=loop_ok)
     require(loop_ok, "closed loop failed to certify every step")
+    # the controller's fan-out step at N = 64 routes to K1 under
+    # MPC_CONFIG's dual-gradient certificate: one launch, no K2
+    k1_before = solve_kernel.fused_full_solve.launches
     k2_before = kernels.fused_pqp_iterations.launches
-    fan = MPCController(spec, cfg=dataclasses.replace(MPC_CONFIG,
-                                                      use_pallas=True),
-                        device=dev)
+    fan = MPCController(spec, device=dev)
     xs = np.random.default_rng(2).normal(0.0, 0.5, (2, 4096))
     _, res = fan.step(xs.astype(np.float32))
     torch.cuda.synchronize()
     fan_conv = float(res.converged.float().mean())
     emit("scenario_fan_out", batch=4096, converged_frac=fan_conv,
          iters_max=int(res.iters.max()),
+         k1_launches=solve_kernel.fused_full_solve.launches - k1_before,
          k2_launches=kernels.fused_pqp_iterations.launches - k2_before)
-    require(kernels.fused_pqp_iterations.launches > k2_before,
-            "the fan-out step did not launch K2")
+    require(solve_kernel.fused_full_solve.launches == k1_before + 1
+            and kernels.fused_pqp_iterations.launches == k2_before,
+            "the fan-out step did not run as one K1 launch")
 
-    # -- phase 5b: the H=16 closed loop kept on the card (rollout_jit),
-    #    timed against the host loop (rollout) on the same spec ---------
-    loop = {}
-    for name in ("rollout_jit", "rollout"):
-        ctrl = MPCController(example_spec(16, 0.0), device=dev)
-        getattr(ctrl, name)([2.0, 0.0], 5)            # warm-up
-        ctrl.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loop[name] = getattr(ctrl, name)([2.0, 0.0], LOOP_STEPS)
-        torch.cuda.synchronize()
-        loop[name]["seconds"] = time.perf_counter() - t0
-    lj, lh = loop["rollout_jit"], loop["rollout"]
-    tol_u = 5e-3 * max(1.0, float(np.abs(lh["u"]).max()))
-    bar = np.maximum(5, lh["iters"] // 5)
-    bar = -(-bar // MPC_CONFIG.check_every) * MPC_CONFIG.check_every
-    in_bar = float((np.abs(lj["iters"] - lh["iters"]) <= bar).mean())
-    du = float(np.abs(lj["u"] - lh["u"]).max())
-    emit("closed_loop_h16_rollout_jit", steps=LOOP_STEPS, nvidia_smi=smi,
-         steps_per_s_rollout_jit=LOOP_STEPS / lj["seconds"],
-         steps_per_s_rollout=LOOP_STEPS / lh["seconds"],
-         certified_rollout_jit=int(lj["converged"].sum()),
-         certified_rollout=int(lh["converged"].sum()),
-         iters_mean_rollout_jit=float(lj["iters"].mean()),
-         iters_mean_rollout=float(lh["iters"].mean()),
-         iters_in_bar=in_bar, max_abs_err_u=du, tol_u=tol_u,
-         max_abs_err_x=float(np.abs(lj["x"] - lh["x"]).max()))
-    require(bool(lj["converged"].all()),
-            "rollout_jit left a step of the H=16 loop uncertified")
-    require(bool(lh["converged"].all()),
-            "rollout left a step of the H=16 loop uncertified")
-    # the bars of tests/test_torch_rollout.py: u within the U bar, the
-    # iteration bar on 26 of 30 steps' share, mean iterations within 10%
-    require(du <= tol_u and in_bar >= 26 / 30
-            and abs(lj["iters"].mean() - lh["iters"].mean())
-            <= 0.1 * lh["iters"].mean(),
-            "rollout_jit and rollout disagree on the H=16 loop")
+    # -- phase 5b: the H=16 closed loop kept on the card (rollout_jit, on
+    #    K1), timed against the host loop (rollout) on the plain engine --
+    closed_loop_h16(dev, smi)
 
     # -- each kernel against its plain version at the main path's shapes,
     #    then both timed ------------------------------------------------

@@ -108,8 +108,9 @@ class SolverConfig:
     # violation of a "feasible" verdict drops ~an order of magnitude).
     # Off by default: the reference's checkFeas program is Gp U
     # (PQP_CPU.c:632-641) and golden conformance keeps it; MPC_CONFIG
-    # enables it.  The plain solve_batched path only — the whole-solve
-    # kernel keeps the reference's in-kernel program.
+    # enables it.  The plain solve_batched path and the whole-solve kernel
+    # K1 honour it (K1 in its dual-gradient instantiation; the JAX
+    # package's kernels do not); K5 and K8 keep the reference's program.
     feas_from_dual_gradient: bool = False
     # Guard the reference's unguarded divide (``updY``, PQP_CPU.c:594).
     # Denominator (Qd^+ + theta) Y + Fd^+ is strictly positive for Y > 0 in
@@ -176,7 +177,7 @@ def stagewise_mpc_config(horizon: int) -> SolverConfig:
     measured).  The remaining floor is the f32 noise of the small-
     magnitude dual-gradient evaluation, ~1e-5/stage-coupling — the
     slack model below keeps an order of margin for saturated
-    closed-loop steps (slew bounds driven negative, ROADMAP #10)."""
+    closed-loop steps (slew bounds driven negative)."""
     if horizon <= 32:
         return MPC_CONFIG
     slack = min(2e-6 * horizon, 1e-3)

@@ -17,7 +17,10 @@
 // card picks for a shape.
 //
 // Semantics match pqp_for_mpc_tpu_torch/ops/solve_kernel.py:
-// fused_full_solve_reference up to float32 summation order.
+// fused_full_solve_reference up to float32 summation order.  feas_dual
+// selects the dual-gradient feasibility test of
+// pqp_for_mpc_tpu_torch/solver.py: check_terminate, with kps holding the
+// slack max(erc Kp, eac); the TPU kernel has only the forcing-scale test.
 
 #include <cuda_runtime.h>
 
@@ -31,7 +34,7 @@ extern "C" int full_solve_f32(
     float* y_out, float* u_out, int* iters_out, int* state_out, int* queue,
     int n, int m, int B, int max_iters, int check_every, int accel_every,
     float eaj, float erj, int strict, float den_eps, int gap_comp,
-    void* stream) {
+    int feas_dual, void* stream) {
   pqp::lts::Args a;
   a.geo = geo;
   a.fp = fp; a.fd = fd; a.fdp = fdp; a.fdn = fdn; a.kps = kps; a.mp = mp;
@@ -44,19 +47,21 @@ extern "C" int full_solve_f32(
   a.n = n; a.m = m; a.B = B; a.max_iters = max_iters;
   a.check_every = check_every; a.accel_every = accel_every;
   a.eaj = eaj; a.erj = erj; a.strict = strict; a.den_eps = den_eps;
-  a.gap_comp = gap_comp;
+  a.gap_comp = gap_comp; a.feas_dual = feas_dual;
   return (int)pqp::lts::launch(a, static_cast<cudaStream_t>(stream));
 }
 
 // The engine's plan for (n, m, B) as this card launches it: out = {lanes,
-// threads, staged matrices, shared bytes, blocks per SM, SMs, grid}.
+// threads, staged matrices, shared bytes, blocks per SM, SMs, grid}, for
+// the forcing-scale instantiation (the fan-out's).
 extern "C" int full_solve_plan(int n, int m, int B, int* out) {
   if (n < 1 || m < 1 || n > 128 || m > 128 || B < 1)
     return (int)cudaErrorInvalidValue;
   const pqp::lts::Plan p = pqp::lts::plan(n, m);
   if (p.smem > pqp::lts::kSmemLimit) return (int)cudaErrorInvalidValue;
   int per_sm = 0, sms = 0, grid = 0;
-  const cudaError_t err = pqp::lts::card_grid(p, B, &per_sm, &sms, &grid);
+  const cudaError_t err =
+      pqp::lts::card_grid<false>(p, B, &per_sm, &sms, &grid);
   if (err != cudaSuccess) return (int)err;
   const int vals[7] = {p.lanes, p.threads, p.staged, (int)p.smem, per_sm,
                        sms, grid};

@@ -17,8 +17,9 @@
 // geometry load across lanes, which is all that packing bought the TPU,
 // and the kron's zero blocks would be pure waste — (G n_pad)^2 products
 // where the function needs G n^2.  So K8 keeps its contract (the packing
-// rule: an N that pads to more than 64 does not pack and is refused) and
-// runs the engine, and gives K1's bits on every lane.
+// rule: an N that pads to more than 64 does not pack and is refused; so is
+// the dual-gradient feasibility test, which the TPU kernel does not have)
+// and runs the engine, and gives K1's bits on every lane.
 
 #include <cuda_runtime.h>
 
@@ -31,7 +32,7 @@ extern "C" int full_solve_f32(
     float* y_out, float* u_out, int* iters_out, int* state_out, int* queue,
     int n, int m, int B, int max_iters, int check_every, int accel_every,
     float eaj, float erj, int strict, float den_eps, int gap_comp,
-    void* stream);
+    int feas_dual, void* stream);
 
 extern "C" int full_solve_packed_f32(
     const float* geo, const float* fp, int fp_lane, const float* fd,
@@ -41,14 +42,15 @@ extern "C" int full_solve_packed_f32(
     float* y_out, float* u_out, int* iters_out, int* state_out, int* queue,
     int n, int m, int B, int max_iters, int check_every, int accel_every,
     float eaj, float erj, int strict, float den_eps, int gap_comp,
-    void* stream) {
+    int feas_dual, void* stream) {
   // the TPU kernel's packing: n_pad = n rounded up to 8 (at least 8),
   // G = 128 / n_pad instances per column
   const int n_pad = ((n > 8 ? n : 8) + 7) / 8 * 8;
-  if (n < 1 || 128 / n_pad < 2) return (int)cudaErrorInvalidValue;
+  // and the TPU kernel's forcing-scale feasibility test alone
+  if (n < 1 || 128 / n_pad < 2 || feas_dual) return (int)cudaErrorInvalidValue;
   return full_solve_f32(geo, fp, fp_lane, fd, fd_lane, fdp, fdp_lane, fdn,
                         fdn_lane, kps, kps_lane, mp, mp_lane, md, md_lane,
                         y0, y0_lane, y_out, u_out, iters_out, state_out,
                         queue, n, m, B, max_iters, check_every, accel_every,
-                        eaj, erj, strict, den_eps, gap_comp, stream);
+                        eaj, erj, strict, den_eps, gap_comp, 0, stream);
 }

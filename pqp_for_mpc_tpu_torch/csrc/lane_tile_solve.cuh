@@ -22,6 +22,14 @@
 //    one 16-byte load of each operand feeding 16 FMAs.  A slot's Fd^- and
 //    Fd^+ entries stay in the registers of the threads that own them, and
 //    its Fd, Kp_slack and Fp in shared memory, for the lane's whole life.
+//  * Feasibility.  The engine is a template on the certificate
+//    (Args::feas_dual picks the instantiation at launch).  Off, the
+//    reference's forcing-scale test Gp U > Kp_slack.  On, the dual-gradient
+//    test of solver.check_terminate (config.feas_from_dual_gradient):
+//    Gp U - Kp = -(Qd Y + Fd) for the recovered U, so a row violates where
+//    !(Qd Y + Fd >= -slack), NaN included, with the panel kps holding the
+//    slack max(erc Kp, eac) in place of Kp_slack; the check reads it off
+//    the Qd Y it forms for the gap and skips the Gp U product.
 //  * Per-lane sums.  Y'Qd Y, Fd'Y, U'Qp U, Fp'U, p'Qd p, p'p, f(Y) and
 //    f(Y_new) are each one FMA chain in ascending index from 0, run by one
 //    thread per slot over columns staged in shared memory; every product
@@ -110,6 +118,7 @@ struct Args {
   int strict;
   float den_eps;
   int gap_comp;
+  int feas_dual;  // the dual-gradient feasibility test (kps = the slack)
 };
 
 struct Plan {
@@ -203,8 +212,10 @@ __device__ __forceinline__ void product(const float* a, int lda,
 }
 
 // The products of the check for the slots with need set:
-// A = Qd Y, t = Gp'Y + Fp, u = -Qp^-1 t, the violation flag of
-// Gp u > Kp_slack, and Qp u (t, u, Qp u in the scratch S).
+// A = Qd Y, t = Gp'Y + Fp, u = -Qp^-1 t, the violation flag (of
+// Gp u > Kp_slack, or with FeasDual of !(A + Fd >= -slack)), and Qp u
+// (t, u, Qp u in the scratch S).
+template <bool FeasDual>
 __device__ __forceinline__ void check_products(const Block& k,
                                                const float* yc) {
   const int n = k.n, m = k.m, lanes = k.lanes, r0 = k.r0, c0 = k.c0;
@@ -218,8 +229,18 @@ __device__ __forceinline__ void check_products(const Block& k,
   if (mine) {
     product(k.qd, k.ldn, yc, lanes, n, r0, c0, acc);
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-      if (r0 + i < n) store(k.A + (r0 + i) * lanes + c0, acc[i]);
+    for (int i = 0; i < R; ++i) {
+      if (r0 + i >= n) continue;
+      store(k.A + (r0 + i) * lanes + c0, acc[i]);
+      if constexpr (FeasDual) {
+        float f[L], sl[L];
+        load(k.fd + (r0 + i) * lanes + c0, f);
+        load(k.kps + (r0 + i) * lanes + c0, sl);
+#pragma unroll
+        for (int j = 0; j < L; ++j)
+          if (nd[j] && !(acc[i][j] + f[j] >= -sl[j])) k.viol[c0 + j] = 1;
+      }
+    }
     for (int g = k.rg; R * g < m; g += k.row_groups) {
       product(k.gp, k.ldm, yc, lanes, n, R * g, c0, acc);
 #pragma unroll
@@ -250,15 +271,17 @@ __device__ __forceinline__ void check_products(const Block& k,
   }
   __syncthreads();
   if (mine) {
-    product(k.gpt, k.ldn, u, lanes, m, r0, c0, acc);
+    if constexpr (!FeasDual) {
+      product(k.gpt, k.ldn, u, lanes, m, r0, c0, acc);
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if (r0 + i >= n) continue;
-      float kp[L];
-      load(k.kps + (r0 + i) * lanes + c0, kp);
+      for (int i = 0; i < R; ++i) {
+        if (r0 + i >= n) continue;
+        float kp[L];
+        load(k.kps + (r0 + i) * lanes + c0, kp);
 #pragma unroll
-      for (int j = 0; j < L; ++j)
-        if (nd[j] && acc[i][j] > kp[j]) k.viol[c0 + j] = 1;
+        for (int j = 0; j < L; ++j)
+          if (nd[j] && acc[i][j] > kp[j]) k.viol[c0 + j] = 1;
+      }
     }
     for (int g = k.rg; R * g < m; g += k.row_groups) {
       product(k.qpt, k.ldm, u, lanes, m, R * g, c0, acc);
@@ -552,6 +575,7 @@ __device__ __forceinline__ void iterate(const Block& k, int& cur,
   __syncthreads();
 }
 
+template <bool FeasDual>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 lane_tile_solve(const Args a) {
   extern __shared__ float4 smem4[];
@@ -616,7 +640,7 @@ lane_tile_solve(const Args a) {
   bool pending = refill(k, cur, a, fn, fq) > 0;
   for (;;) {
     while (pending) {
-      check_products(k, k.y(cur));
+      check_products<FeasDual>(k, k.y(cur));
       decide(k, k.y(cur), a);
       request(k);
       // a few refilled slots wait for the next round's check (with their
@@ -632,15 +656,17 @@ lane_tile_solve(const Args a) {
   }
 }
 
-// The grid: the blocks the card holds at once, capped at ceil(B / lanes).
+// The grid of the FeasDual instantiation: the blocks the card holds at
+// once, capped at ceil(B / lanes).
+template <bool FeasDual>
 inline cudaError_t card_grid(const Plan& p, int B, int* per_sm, int* sms,
                              int* grid) {
   cudaError_t err = cudaFuncSetAttribute(
-      lane_tile_solve, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lane_tile_solve<FeasDual>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)p.smem);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, lane_tile_solve, p.threads, p.smem);
+      per_sm, lane_tile_solve<FeasDual>, p.threads, p.smem);
   if (err != cudaSuccess) return err;
   int dev = 0;
   err = cudaGetDevice(&dev);
@@ -653,19 +679,27 @@ inline cudaError_t card_grid(const Plan& p, int B, int* per_sm, int* sms,
   return *grid > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
+template <bool FeasDual>
+inline cudaError_t launch_as(const Args& a, const Plan& p,
+                             cudaStream_t stream) {
+  int per_sm = 0, sms = 0, grid = 0;
+  const cudaError_t err = card_grid<FeasDual>(p, a.B, &per_sm, &sms, &grid);
+  if (err != cudaSuccess) return err;
+  lane_tile_solve<FeasDual><<<grid, p.threads, p.smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // Refuses what the engine does not take (cudaErrorInvalidValue); else
-// launches on the stream and returns cudaGetLastError().
+// launches the instantiation of a.feas_dual on the stream and returns
+// cudaGetLastError().
 inline cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.n < 1 || a.m < 1 || a.n > 128 || a.m > 128 || a.B < 1 ||
       a.B > kMaxBatch || a.check_every < 1 || a.accel_every < 0)
     return cudaErrorInvalidValue;
   const Plan p = plan(a.n, a.m);
   if (p.smem > kSmemLimit) return cudaErrorInvalidValue;
-  int per_sm = 0, sms = 0, grid = 0;
-  const cudaError_t err = card_grid(p, a.B, &per_sm, &sms, &grid);
-  if (err != cudaSuccess) return err;
-  lane_tile_solve<<<grid, p.threads, p.smem, stream>>>(a);
-  return cudaGetLastError();
+  return a.feas_dual ? launch_as<true>(a, p, stream)
+                     : launch_as<false>(a, p, stream);
 }
 
 }  // namespace lts

@@ -521,7 +521,7 @@ def _condense(spec: MPCSpec, device) -> CondensedMPCData:
 #: auto_backend's condensed->stage-wise crossover, as the CONDENSED dual
 #: dimension n_con — the JAX package's value, measured there on a TPU
 #: (its models/mpc.py); the H100's reading is recorded in PERF.md and not
-#: acted on yet (ROADMAP queue 1, item 5).
+#: acted on yet (ROADMAP item 4.5e).
 _AUTO_BACKEND_NCON = 1536
 
 
@@ -812,9 +812,10 @@ class MPCController:
         into buffers preallocated on the device and brought to the host
         once at the end.  The JAX package compiles this loop into one
         ``lax.scan``; here it is a Python loop whose only host syncs are
-        the solver's own per-check ``all(done)`` tests (and, with
-        ``retry_cold``, its per-step "did every lane certify").  No CUDA
-        graph: that loop is data-dependent.  ``self._rollout_fns`` caches
+        the plain solver's per-check ``all(done)`` tests (none where the
+        step runs as one K1 launch) and, with ``retry_cold``, its
+        per-step "did every lane certify".  No CUDA graph: that loop is
+        data-dependent.  ``self._rollout_fns`` caches
         the buffers per ``(steps, preview, w_seq)``.
 
         ``d_forecast`` — optional known-disturbance preview ``(steps + H,

@@ -51,12 +51,12 @@ SIGNATURES = {
     # kps, kps_lane, mp, mp_lane, md, md_lane, y0, y0_lane,
     # y_out, u_out, iters_out, state_out, queue,
     # n, m, B, max_iters, check_every, accel_every,
-    # eaj, erj, strict, den_eps, gap_comp, stream
+    # eaj, erj, strict, den_eps, gap_comp, feas_dual, stream
     "full_solve_f32": [_P] + [_P, _I] * 8 + [_P] * 5 + [_I] * 6
-    + [_F, _F, _I, _F, _I, _P],
+    + [_F, _F, _I, _F, _I, _I, _P],
     # the arguments of full_solve_f32
     "full_solve_packed_f32": [_P] + [_P, _I] * 8 + [_P] * 5 + [_I] * 6
-    + [_F, _F, _I, _F, _I, _P],
+    + [_F, _F, _I, _F, _I, _I, _P],
     # n, m, B, out (7 ints)
     "full_solve_plan": [_I] * 3 + [_P],
     # q, q_bf16, theta, fdn, fdp, fd_lane, y, y_out, y_tmp, yb0, yb1, n,

@@ -264,9 +264,10 @@ def fused_full_solve_packed(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
     """Run the full batched PQP solve with ``pack_factor(N)`` instances per
     packed column.  The contract of
     :func:`~pqp_for_mpc_tpu_torch.ops.solve_kernel.fused_full_solve`
-    (shared geometry, panels per lane or shared, per-lane ``Kp_slack``);
-    ``N`` must pack (``pack_factor(N) > 1``), else ``ValueError``.
-    Returns ``(Y, U, iters, lane_state)``."""
+    (shared geometry, panels per lane or shared, per-lane ``Kp_slack``)
+    with the TPU kernel's forcing-scale feasibility test alone (it takes
+    no ``feas_dual``); ``N`` must pack (``pack_factor(N) > 1``), else
+    ``ValueError``.  Returns ``(Y, U, iters, lane_state)``."""
     kw = dict(max_iters=max_iters, check_every=check_every,
               accel_every=accel_every, eaj=eaj, erj=erj, strict=strict,
               den_eps=den_eps, precision=precision, gap_comp=gap_comp)
@@ -289,7 +290,8 @@ def fused_full_solve_packed(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
         raise ValueError("check_every must be >= 1 and accel_every >= 0")
     return launch_engine("full_solve_packed_f32", fused_full_solve_packed,
                          Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv, Fp, Fd,
-                         Fdp, Fdn, Kp_slack, Mp, Md, Y0, **kw)
+                         Fdp, Fdn, Kp_slack, Mp, Md, Y0, feas_dual=False,
+                         **kw)
 
 
 fused_full_solve_packed.launches = 0
@@ -300,10 +302,12 @@ def solve_fused_packed(primal, dual, Y0: Optional[torch.Tensor] = None,
     """Drop-in analog of
     :func:`~pqp_for_mpc_tpu_torch.ops.solve_kernel.solve_fused` on the
     packed kernel: shared geometry with ``pack_factor(N) > 1`` only, warm
-    start and per-lane ``Kp`` as there.  A split-free dual raises a
+    start and per-lane ``Kp`` as there.  The kernel certifies feasibility
+    with the forcing-scale test whatever the cfg asks (as the JAX
+    package's); the exit verdict is the cfg's.  A split-free dual raises a
     ``ValueError`` that names the fix (the JAX package fails on it with
     an opaque error)."""
     args, kwargs = fused_inputs(primal, dual, Y0, cfg,
-                                name="solve_fused_packed")
+                                name="solve_fused_packed", feas_dual=False)
     return fused_result(primal, dual, cfg,
                         *fused_full_solve_packed(*args, **kwargs))

@@ -22,15 +22,25 @@ certificate, 3 = batch padding (never produced here: the kernel needs no
 padding).  :func:`solve_fused` wraps it into a
 :class:`~pqp_for_mpc_tpu_torch.solver.SolveResult`.
 
+Feasibility: the TPU kernel's forcing-scale test ``Gp U > Kp_slack``, or,
+with ``feas_dual`` (:func:`fused_inputs` sets it where the cfg asks for
+``feas_from_dual_gradient``), the dual-gradient test of
+:func:`~pqp_for_mpc_tpu_torch.solver.check_terminate` on the ``Qd Y`` the
+check forms for its gap, with ``Kp_slack`` then holding the slack
+``max(erc*Kp, eac)``.  The TPU kernel has no such test (a deliberate
+difference, ROADMAP queue 3).
+
 The TPU kernel's batch-block picker and VMEM budgets have no meaning on the
 GPU and are not ported; :func:`fits_resident` is the shared-memory fit
 test.  Dispatch: CPU tensors go to the plain version; CUDA tensors launch
-the kernel, and a failed build or launch raises.
+the kernel, and a failed build or launch raises.  The geometry's layout is
+built once per geometry (:func:`geometry_layout`).
 ``fused_full_solve.launches`` counts the launches.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -148,6 +158,34 @@ def engine_geometry(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv):
                       _depth_major(Qp_inv, ldm), _depth_major(Qp, ldm)])
 
 
+#: geometry layouts kept, least recently used dropped first
+LAYOUT_KEYS = 8
+_LAYOUTS: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def geometry_layout(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv):
+    """:func:`engine_geometry` of these matrices, built once per geometry:
+    a controller solves every step on the same tensors, so its layout is
+    reused.  The key is each matrix's identity, the entry a
+    ``solver.IdentityEntry`` stamped with each matrix's data pointer and
+    version counter, so a matrix written in place, or moved, gets a new
+    layout.  Inference tensors, which keep no version counter, are laid
+    out on every call."""
+    from pqp_for_mpc_tpu_torch.solver import remember
+    mats = (Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv)
+    if any(t.is_inference() for t in mats):
+        return engine_geometry(*mats)
+    key = tuple(map(id, mats))
+    stamp = tuple((t.data_ptr(), t._version) for t in mats)
+    entry = _LAYOUTS.get(key)
+    if entry is not None and entry.alive() and entry.places == stamp:
+        _LAYOUTS.move_to_end(key)
+        return entry.value
+    entry = remember(_LAYOUTS, key, mats, LAYOUT_KEYS)
+    entry.places, entry.value = stamp, engine_geometry(*mats)
+    return entry.value
+
+
 def fused_full_solve_reference(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
                                Fp, Fd, Fdp, Fdn, Kp_slack, Mp, Md, Y0, *,
                                max_iters: int, check_every: int,
@@ -155,13 +193,16 @@ def fused_full_solve_reference(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
                                erj: float = 1e-6, strict: bool = True,
                                den_eps: float = 1e-30,
                                precision: str = "highest",
-                               gap_comp: bool = False):
+                               gap_comp: bool = False,
+                               feas_dual: bool = False):
     """The plain PyTorch version of the kernel: the TPU kernel's body
     (``pqp_for_mpc_tpu/ops/solve_kernel.py:_kernel``) over the whole batch,
-    looping until no lane is active or ``h > max_iters``.  Panels may be
-    per lane or shared, as for :func:`fused_full_solve`.  The matrices may
-    also be per instance (``(B, N, N)``, ...): this body is then the plain
-    version of the distinct-geometry kernel K5 too
+    looping until no lane is active or ``h > max_iters``, with the
+    dual-gradient feasibility test where ``feas_dual`` asks for it (as
+    :func:`fused_full_solve`).  Panels may be per lane or shared, as for
+    :func:`fused_full_solve`.  The matrices may also be per instance
+    (``(B, N, N)``, ...): this body is then the plain version of the
+    distinct-geometry kernel K5 too
     (:mod:`pqp_for_mpc_tpu_torch.ops.distinct_kernel`)."""
     from pqp_for_mpc_tpu_torch.solver import _mv, _mvT
 
@@ -196,8 +237,13 @@ def fused_full_solve_reference(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
 
     def check(y):
         u = -_mv(Qp_inv, _mvT(Gp, y) + fp)
-        feas = ~(_mv(Gp, u) > kps).any(dim=0)
-        s1 = (y * _mv(Qd, y)).sum(dim=0)
+        qdy = _mv(Qd, y)
+        if feas_dual:
+            # Gp U - Kp = -(Qd Y + Fd); kps holds the slack; NaN violates
+            feas = (qdy + fd >= -kps).all(dim=0)
+        else:
+            feas = ~(_mv(Gp, u) > kps).any(dim=0)
+        s1 = (y * qdy).sum(dim=0)
         s2 = (fd * y).sum(dim=0)
         jd = 0.5 * s1 + s2 + 0.5 * md
         jp = 0.5 * (u * _mv(Qp, u)).sum(dim=0) + (fp * u).sum(dim=0) + 0.5 * mp
@@ -256,18 +302,22 @@ def fused_full_solve(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
                      accel_every: int = 0, eaj: float = 1e-6,
                      erj: float = 1e-6, strict: bool = True,
                      den_eps: float = 1e-30, precision: str = "highest",
-                     gap_comp: bool = False):
+                     gap_comp: bool = False, feas_dual: bool = False):
     """Run the full batched PQP solve in one launch.
 
     Matrices ``(N, N)``/``(N, M)``/``(M, M)``; ``Y0 (N, B)``; the panels
     ``Fp (M, .)``, ``Fd``/``Fdp``/``Fdn``/``Kp_slack (N, .)`` and ``Mp``/
     ``Md (.)`` are per lane (``B`` columns) or shared by every lane.
     ``Kp_slack`` is the pre-slackened threshold ``Kp + max(erc*Kp, eac)``
-    (compare, PQP_CPU.c:334-343).  Returns ``(Y, U, iters, lane_state)``.
+    (compare, PQP_CPU.c:334-343); with ``feas_dual`` it is the slack
+    ``max(erc*Kp, eac)`` alone, and a lane is feasible where
+    ``Qd Y + Fd >= -Kp_slack`` on every row.  Returns ``(Y, U, iters,
+    lane_state)``.
     """
     kw = dict(max_iters=max_iters, check_every=check_every,
               accel_every=accel_every, eaj=eaj, erj=erj, strict=strict,
-              den_eps=den_eps, precision=precision, gap_comp=gap_comp)
+              den_eps=den_eps, precision=precision, gap_comp=gap_comp,
+              feas_dual=feas_dual)
     if not _on_cuda(Y0, "Y0"):
         return fused_full_solve_reference(
             Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv, Fp, Fd, Fdp, Fdn,
@@ -297,17 +347,17 @@ def launch_engine(entry: str, wrapper, Qdn_theta, Qdp_theta, Qd, Gp, Qp,
                   Qp_inv, Fp, Fd, Fdp, Fdn, Kp_slack, Mp, Md, Y0, *,
                   max_iters: int, check_every: int, accel_every: int,
                   eaj: float, erj: float, strict: bool, den_eps: float,
-                  precision: str, gap_comp: bool):
+                  precision: str, gap_comp: bool, feas_dual: bool):
     """Launch the lane-tile engine through the C entry ``entry`` (K1's or
     K8's) on CUDA tensors whose shapes the caller checked: the geometry
-    laid out by :func:`engine_geometry`, the panels per lane or shared, a
+    laid out by :func:`geometry_layout`, the panels per lane or shared, a
     zeroed int32 lane counter.  Adds one to ``wrapper.launches`` per
     launch and returns ``(Y, U, iters, lane_state)``; a refused launch
     raises naming ``wrapper``."""
     N, B = Y0.shape
     M = Gp.shape[1]
     dev = Y0.device
-    geo = engine_geometry(_matrix(Qdn_theta, (N, N), "Qdn_theta", dev),
+    geo = geometry_layout(_matrix(Qdn_theta, (N, N), "Qdn_theta", dev),
                           _matrix(Qdp_theta, (N, N), "Qdp_theta", dev),
                           _matrix(Qd, (N, N), "Qd", dev),
                           _matrix(Gp, (N, M), "Gp", dev),
@@ -332,7 +382,8 @@ def launch_engine(entry: str, wrapper, Qdn_theta, Qdp_theta, Qd, Gp, Qp,
     args += [y.data_ptr(), u.data_ptr(), iters.data_ptr(), state.data_ptr(),
              queue.data_ptr(), N, M, B, int(max_iters), int(check_every),
              int(accel_every), float(eaj), float(erj), int(bool(strict)),
-             float(den_eps), int(bool(gap_comp)), build.stream_handle(dev)]
+             float(den_eps), int(bool(gap_comp)), int(bool(feas_dual)),
+             build.stream_handle(dev)]
     launch = getattr(build.load_library(), entry)
     with tracing.span(ENGINE_SPANS[entry], device=dev):
         code = launch(*args)
@@ -346,12 +397,17 @@ fused_full_solve.launches = 0
 
 def fused_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
                  cfg: Optional[SolverConfig] = None,
-                 name: str = "solve_fused"):
+                 name: str = "solve_fused",
+                 feas_dual: Optional[bool] = None):
     """The arguments :func:`solve_fused` hands the kernel for this problem:
     ``(args, kwargs)`` for :func:`fused_full_solve` or, identically, for
     :func:`fused_full_solve_reference` (and the packed kernel K8, whose
     entry point ``name`` the errors then give).  Panels shared by every
-    lane stay shared (stride-0 views)."""
+    lane stay shared (stride-0 views).  ``feas_dual`` (default: the cfg's
+    ``feas_from_dual_gradient``) asks for the dual-gradient feasibility
+    test: the threshold panel is then the slack ``max(erc*Kp, eac)`` and
+    ``kwargs`` carries ``feas_dual=True``; without it ``kwargs`` are the
+    TPU kernel's."""
     from pqp_for_mpc_tpu_torch.solver import _as2d
 
     cfg = cfg or SolverConfig()
@@ -377,7 +433,11 @@ def fused_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
                 f"warm start batch {Y0.shape[1]} != instance batch {B}")
         B = max(B, Y0.shape[1])
     M = primal.Gp.shape[1]
-    kp_slack = primal.Kp + torch.clamp(cfg.erc * primal.Kp, min=cfg.eac)
+    if feas_dual is None:
+        feas_dual = cfg.feas_from_dual_gradient
+    kp_slack = torch.clamp(cfg.erc * primal.Kp, min=cfg.eac)
+    if not feas_dual:
+        kp_slack = primal.Kp + kp_slack
     if kp_slack.dim() == 2 and kp_slack.shape[1] not in (1, B):
         raise ValueError(
             f"Kp batch {kp_slack.shape[1]} != instance batch {B}")
@@ -391,6 +451,8 @@ def fused_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
                   strict=cfg.strict_weak_duality, den_eps=cfg.den_eps,
                   precision=cfg.precision,
                   gap_comp=cfg.gap_from_complementarity)
+    if feas_dual:
+        kwargs["feas_dual"] = True
     return args, kwargs
 
 
@@ -398,22 +460,18 @@ def fused_result(primal, dual, cfg: Optional[SolverConfig], Y, U, iters,
                  lane_state):
     """A :class:`~pqp_for_mpc_tpu_torch.solver.SolveResult` from the
     kernel's outputs.  The exit-time costs and feasibility are recomputed
-    in PyTorch, and a lane the kernel did not certify (stall-frozen or out
-    of iterations) counts as converged when its exit state passes the
-    verdict there — the rescue of
+    in PyTorch under the cfg's certificate
+    (:func:`~pqp_for_mpc_tpu_torch.solver.certificate`, the verdict of
+    ``check_terminate``), and a lane the kernel did not certify
+    (stall-frozen or out of iterations) counts as converged when its exit
+    state passes the verdict there — the rescue of
     ``pqp_for_mpc_tpu/ops/solve_kernel.py:464-490``."""
-    from pqp_for_mpc_tpu_torch.solver import (SolveResult,
-                                              complementarity_gap, costs,
-                                              feasibility, termination_fail)
+    from pqp_for_mpc_tpu_torch.solver import SolveResult, certificate
 
     cfg = cfg or SolverConfig()
-    feas = feasibility(primal, U, cfg.erc, cfg.eac)
-    Jp, Jd = costs(primal, dual, Y, U)
+    fail, feas, Jp, Jd = certificate(primal, dual, Y, U, cfg)
     div = ~torch.isfinite(Y).all(dim=0)
     cert = lane_state == LANE_CERTIFIED
-    gap = (complementarity_gap(dual, Y)
-           if cfg.gap_from_complementarity else None)
-    fail = termination_fail(feas, Jp, Jd, cfg, gap)
     conv = (cert | ~fail) & ~div
     return SolveResult(U=U, Y=Y, iters=iters, converged=conv,
                        feasible=feas, Jp=Jp, Jd=Jd, diverged=div)

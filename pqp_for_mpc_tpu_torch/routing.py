@@ -29,13 +29,12 @@ geometry        regime                           engine
 ==============  ===============================  ===================
 shared (2-D)    N > 128 (past the resident       mixed
                 kernels), warm B = 1 included
-shared          B < 128                          xla
-shared          N >= 512, complementarity gap    mixed (warm: xla)
-shared          feas_from_dual_gradient          xla
-shared          warm, N >= 512                   xla
 shared          N > FUSED_N_MAX (64, measured    xla
                 on an H100), or K1's shared
                 memory refuses (N, M)
+shared          feas_from_dual_gradient: any     fused
+                batch, warm or cold
+shared          B < 128 (forcing-scale test)     xla
 shared          otherwise                        fused
 distinct (3-D)  past distinct_fits_resident      mixed
 distinct        feas_from_dual_gradient or       xla
@@ -44,17 +43,29 @@ distinct        otherwise                        fused_distinct
 ==============  ===============================  ===================
 
 The shared branch is the JAX package's (its ``routing.py:141-175``) with
-the shared-memory fit test in place of ``fits_vmem``; its one measured
-H100 crossover is :data:`FUSED_N_MAX` (``PERF.md``).  The distinct branch
+the shared-memory fit test in place of ``fits_vmem`` and one deliberate
+difference (ROADMAP queue 3): K1 honours ``feas_from_dual_gradient`` (its
+dual-gradient instantiation), which the JAX kernel ignores, and takes such
+a cfg (``MPC_CONFIG``'s) at every batch, where JAX sends it, as it sends
+every B < 128, to its plain path.  At B = 1 one K1 launch at B = 1 replaces the plain loop's
+per-check launches and host reads; K1 was timed against the plain solve
+with its CUDA graphs, warm, at B = 1, 8 and 64 and N = 28 and 64, and won
+each (``PERF.md``).  The forcing-scale test keeps JAX's B < 128 line: K1
+was not timed there, and its summation order can leave an instance the
+plain solve certifies at that test's float32 floor uncertified (the
+command line's ``solve-file`` on the generator's seed-3 12 x 30 instance).
+JAX's lines at N >= 512 (the complementarity gap, warm starts) lie past
+the port's residency line, on ``"mixed"``.  Its one measured H100
+crossover is :data:`FUSED_N_MAX`.  ``warm`` changes no line of the map on
+CUDA.  The distinct branch
 is the JAX package's (its ``routing.py:136-140``) with one deliberate
 difference: where K5 would run, a cfg that asks for a certificate K5 does
 not compute — the dual-gradient feasibility or the complementarity gap; K5
 certifies with the forcing-scale ``Gp U`` test and the explicit gap —
-routes to ``"xla"``, as the shared branch does for the dual-gradient flag
-(ROADMAP queue 3).  ``"mixed"`` certifies through ``check_terminate``, which
-honours both flags.
+routes to ``"xla"`` (ROADMAP queue 3).  ``"mixed"`` certifies through
+``check_terminate``, which honours both flags.
 ``distinct_fits_resident`` is the TPU's per-instance budget carried over
-until an H100 cell measures the line (ROADMAP queue 1, item 5); the other
+until an H100 cell measures the line (ROADMAP item 4.5c); the other
 crossovers are the TPU's likewise.
 """
 
@@ -67,14 +78,10 @@ import torch
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
 from pqp_for_mpc_tpu_torch.problem import DualQP, PrimalQP
-from pqp_for_mpc_tpu_torch.solver import (SolveResult, _as2d, _batch_of,
-                                          retry_cold_solve, solve_batched,
-                                          solve_mixed)
+from pqp_for_mpc_tpu_torch.solver import (_LANE, SolveResult, _as2d,
+                                          _batch_of, retry_cold_solve,
+                                          solve_batched, solve_mixed)
 from pqp_for_mpc_tpu_torch.utils import tracing
-
-#: lane quantum below which the JAX package's map keeps the small-batch
-#: (receding-horizon) regime on the plain path
-_LANE = 128
 
 #: largest N the router sends to the whole-solve kernel.  The kernel takes
 #: N up to 128, but its 128-entry build keeps the lane's arrays in local
@@ -94,7 +101,8 @@ def route_solve(n_con: int, batch: int, distinct: bool,
 
     ``n_con`` = N, ``batch`` = B, ``distinct`` = per-instance Qd,
     ``m_dim`` = M, ``platform`` = the tensors' device type (``None`` asks
-    whether CUDA is available), ``warm`` = a warm start is given.
+    whether CUDA is available), ``warm`` = a warm start is given (kept
+    for the JAX package's signature: no line of the port's map reads it).
     Returns one of :data:`ENGINES` (never ``"fused_distinct_tiled"``).
     """
     if platform is None:
@@ -115,17 +123,6 @@ def route_solve(n_con: int, batch: int, distinct: bool,
     from pqp_for_mpc_tpu_torch.ops.kernels import fits_resident
     if not fits_resident(n_con):
         return "mixed"
-    if batch < _LANE:
-        return "xla"
-    if n_con >= 512 and cfg.gap_from_complementarity:
-        return "xla" if warm else "mixed"
-    if cfg.feas_from_dual_gradient:
-        # the whole-solve kernel certifies feasibility with the
-        # reference's forcing-scale Gp U program; a cfg that asked for the
-        # operator-consistent certificate rides the plain check
-        return "xla"
-    if warm and n_con >= 512:
-        return "xla"
     if n_con > FUSED_N_MAX:
         return "xla"
     if m_dim is not None:
@@ -133,6 +130,8 @@ def route_solve(n_con: int, batch: int, distinct: bool,
             fits_resident as fused_fits
         if not fused_fits(n_con, m_dim):
             return "xla"
+    if batch < _LANE and not cfg.feas_from_dual_gradient:
+        return "xla"
     return "fused"
 
 

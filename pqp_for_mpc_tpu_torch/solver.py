@@ -246,6 +246,15 @@ def check_terminate(primal: PrimalQP, dual: DualQP, Y: torch.Tensor,
     scale instead of forcing scale — see the JAX ``check_terminate``.
     """
     U = recover_U(primal, Y)
+    fail, feas, Jp, Jd = certificate(primal, dual, Y, U, cfg)
+    return ~fail, U, feas, Jp, Jd
+
+
+def certificate(primal: PrimalQP, dual: DualQP, Y: torch.Tensor,
+                U: torch.Tensor, cfg: SolverConfig):
+    """The verdict of :func:`check_terminate` on ``Y`` and its recovered
+    ``U`` (the whole-solve kernels return theirs): ``(fail, feas, Jp,
+    Jd)``, each (B,)."""
     if cfg.feas_from_dual_gradient:
         QdY = _mv(dual.Qd, Y)
         g = QdY + _as2d(dual.Fd)                    # = Kp - Gp U exactly
@@ -261,8 +270,7 @@ def check_terminate(primal: PrimalQP, dual: DualQP, Y: torch.Tensor,
         Jp, Jd = costs(primal, dual, Y, U)
         gap = (complementarity_gap(dual, Y)
                if cfg.gap_from_complementarity else None)
-    fail = termination_fail(feas, Jp, Jd, cfg, gap)
-    return ~fail, U, feas, Jp, Jd
+    return termination_fail(feas, Jp, Jd, cfg, gap), feas, Jp, Jd
 
 
 def merge_lanes(ok: torch.Tensor, res_a: SolveResult,
@@ -472,14 +480,20 @@ def _solve_core(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
     return res if graphs is None else graphs.own(res)
 
 
+#: lane quantum below which the JAX package's map keeps the small-batch
+#: (receding-horizon) regime on the plain path: the batch under which the
+#: plain solver replays CUDA graphs, and under which the router keeps the
+#: forcing-scale test off K1 (``routing.route_solve``)
+_LANE = 128
+
+
 def graphs_engage(device_type: str, batch: int, plain: bool,
                   seen: bool) -> bool:
     """Whether a solve's loop replays CUDA graphs: on CUDA, at a batch
-    under the router's lane width (there a launch costs more than the work
-    it starts), with a plain body (``plain``: no K2 or K3 wrapper, which
+    under :data:`_LANE` (there a launch costs more than the work it
+    starts), with a plain body (``plain``: no K2 or K3 wrapper, which
     launch through ctypes on their own stream), and only for a key solved
     before (``seen``), so a one-off solve never pays for a capture."""
-    from pqp_for_mpc_tpu_torch.routing import _LANE
     return device_type == "cuda" and batch < _LANE and plain and seen
 
 
@@ -526,23 +540,36 @@ def _graph_key(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
             tuple(getattr(cfg, f) for f in _BODY_FIELDS))
 
 
-class _KeyEntry:
-    """A solve key seen before: weak references to its geometry (a dead
-    one means its id now names another tensor) and, once captured, the
-    graphs and the places they read the geometry from.  The cache keeps no
-    caller's geometry alive: a graph replays only while the very tensors
-    it was captured on live at the same places.  A write into them in
-    place is read by the next replay, as by an eager solve."""
+class IdentityEntry:
+    """A cache entry keyed on some tensors' identities (``id`` of each):
+    weak references to them (a dead one means its id may now name another
+    tensor), where their data lay when ``value`` was made (``places``, the
+    caller's choice of stamp) and ``value``.  It keeps no caller's tensors
+    alive.  The plain solver's graphs and K1's geometry layout
+    (``ops.solve_kernel.geometry_layout``) are cached in such entries."""
 
-    __slots__ = ("refs", "places", "graphs")
+    __slots__ = ("refs", "places", "value")
 
-    def __init__(self, geo: tuple):
-        self.refs = tuple(None if t is None else weakref.ref(t)
-                          for t in geo)
-        self.places = self.graphs = None
+    def __init__(self, ts: tuple):
+        self.refs = tuple(None if t is None else weakref.ref(t) for t in ts)
+        self.places = self.value = None
 
     def alive(self) -> bool:
         return all(r is None or r() is not None for r in self.refs)
+
+
+def remember(cache: "collections.OrderedDict", key, ts: tuple,
+             keep: int) -> IdentityEntry:
+    """A new :class:`IdentityEntry` of ``ts`` under ``key``, the most
+    recently used of ``cache``; entries whose tensors died are dropped,
+    then the least recently used past ``keep``."""
+    for k in [k for k, e in cache.items() if not e.alive()]:
+        del cache[k]
+    cache[key] = entry = IdentityEntry(ts)
+    cache.move_to_end(key)
+    while len(cache) > keep:
+        cache.popitem(last=False)
+    return entry
 
 
 def _graphs_for(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
@@ -560,21 +587,20 @@ def _graphs_for(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
     entry = _GRAPHS.get(key)
     seen = entry is not None and entry.alive()
     if not graphs_engage(Y0.device.type, Y0.shape[1], plain, seen):
-        for k in [k for k, e in _GRAPHS.items() if not e.alive()]:
-            del _GRAPHS[k]
-        _GRAPHS[key] = _KeyEntry(geo)
-        while len(_GRAPHS) > GRAPH_KEYS:
-            _GRAPHS.popitem(last=False)
+        remember(_GRAPHS, key, geo, GRAPH_KEYS)
         return None
     _GRAPHS.move_to_end(key)
-    # where each geometry tensor's data lies, as the graphs read it
+    # where each geometry tensor's data lies, as the graphs read it: a
+    # graph replays only while the very tensors it was captured on live at
+    # the same places, and reads a write into them in place, as an eager
+    # solve does
     places = tuple(None if t is None else (t.data_ptr(), t.stride())
                    for t in geo)
-    if entry.graphs is None or entry.places != places:
-        entry.graphs = None             # free the old pools first
-        entry.graphs = _SolveGraphs(primal, dual, Y0, cfg)
+    if entry.value is None or entry.places != places:
+        entry.value = None              # free the old pools first
+        entry.value = _SolveGraphs(primal, dual, Y0, cfg)
         entry.places = places
-    return entry.graphs
+    return entry.value
 
 
 def _into(block, st: _LoopState):

@@ -9,7 +9,8 @@ file imports neither JAX nor the JAX package:
 Eager means the engagement rule forced off (``solver.graphs_engage``
 patched to refuse) in the test alone.  The benchmark's warm loop
 (``port_bench/configs/double_integrator_h7.json``: its plant, horizon and
-loop settings; x redrawn at step 100, plant noise w ~ N(0, 0.05^2)) runs
+loop settings; x redrawn at step 100, plant noise w ~ N(0, 0.05^2)), its
+solves sent to the plain engine (the router sends them to K1), runs
 200 steps both ways: u0, Y, U and iters are the same bits at every step,
 one capture serves the 200 steps, and a returned result is unchanged by
 the steps after it.  A warm batch of 4 lanes that certify at different
@@ -19,6 +20,7 @@ eight keys.
 """
 
 import dataclasses
+import functools
 import json
 from pathlib import Path
 
@@ -27,10 +29,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from pqp_for_mpc_tpu_torch import solver
+from pqp_for_mpc_tpu_torch import routing, solver
 from pqp_for_mpc_tpu_torch.config import SolverConfig
 from pqp_for_mpc_tpu_torch.dual import dual_geometry, dualize_forcing
 from pqp_for_mpc_tpu_torch.models import MPCController, MPCSpec, condense
+from pqp_for_mpc_tpu_torch.models import mpc
 from pqp_for_mpc_tpu_torch.models.plants import LinearPlant
 from pqp_for_mpc_tpu_torch.utils import tracing
 
@@ -100,10 +103,13 @@ def _loop(dev, xs=None):
 @pytest.fixture(scope="module")
 def loops(dev):
     solver._GRAPHS.clear()
-    graphs = _loop(dev)
     mp = pytest.MonkeyPatch()
-    _eager(mp)
+    # the controller's solves on the plain engine, whose loop has the graphs
+    mp.setattr(mpc, "solve_auto", functools.partial(routing.solve_auto,
+                                                    engine="xla"))
     try:
+        graphs = _loop(dev)
+        _eager(mp)
         eager = _loop(dev, xs=graphs[1])
     finally:
         mp.undo()
@@ -205,4 +211,4 @@ def test_the_cache_keeps_eight_keys(dev):
             solver.solve_batched(p, d, Y0=Y.expand(-1, b).contiguous(),
                                  cfg=LOOP)
     assert len(solver._GRAPHS) == solver.GRAPH_KEYS
-    assert all(e.graphs is not None for e in solver._GRAPHS.values())
+    assert all(e.value is not None for e in solver._GRAPHS.values())

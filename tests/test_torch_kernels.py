@@ -8,6 +8,13 @@ oracle parity bar (converged equal, iterations within max(5, iters/5)
 rounded up to whole checks, U within 5e-3 * max(1, |U|max)).  The CUDA
 kernels themselves are held to these plain versions on the GPU by
 ``tests/test_torch_cuda.py``.
+
+K1's dual-gradient feasibility test (``feas_dual``, which the JAX kernel
+does not have) is held to the port's own plain solve under
+``MPC_CONFIG``: the same verdicts, iterations within one check period and
+U within 1e-5, cold and warm; ``fused_result``'s exit verdict is
+``check_terminate``'s on the same Y (NaN lanes included), and the
+geometry's layout is built once per geometry.
 """
 
 import dataclasses
@@ -288,3 +295,127 @@ def test_engine_geometry_layout(n, m):
         assert off % 4 == 0
         off += A.shape[1] * pad
     assert off == geo.numel()
+
+
+def _port_workload(lanes, seed):
+    """The double integrator at H=7 (M=7, N=28) for ``lanes`` states
+    x0 ~ N(0, 0.5^2), built by the port alone: (primal, dual)."""
+    from pqp_for_mpc_tpu_torch import dualize
+    from pqp_for_mpc_tpu_torch.models import MPCSpec as TSpec
+    from pqp_for_mpc_tpu_torch.models import condense as tcondense
+    from pqp_for_mpc_tpu_torch.models import double_integrator as tdi
+
+    spec = TSpec(tdi(), horizon=7, Qy=np.eye(1), R=0.05 * np.eye(1),
+                 r=np.array([2.5]), u_min=-np.ones(1), u_max=np.ones(1),
+                 du_max=0.5 * np.ones(1))
+    data = tcondense(spec, device="cpu")
+    x = np.random.default_rng(seed).normal(0.0, 0.5, (2, lanes))
+    primal = data.assemble(x=torch.as_tensor(x.astype(np.float32)),
+                           Qp=data.qp())
+    return primal, dualize(primal)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_k1_plain_dual_gradient_matches_solve_batched(warm):
+    from pqp_for_mpc_tpu_torch.solver import solve_batched
+
+    cfg = MPC_CONFIG
+    assert cfg.feas_from_dual_gradient
+    primal, dual = _port_workload(B, 0)
+    Y0 = None
+    if warm:
+        # the next states' solves from the last ones' multipliers, floored
+        # as the controller floors them
+        prev = solve_batched(*_port_workload(B, 1), cfg=cfg)
+        Y0 = torch.clamp(prev.Y, min=1e-6)
+    args, kw = solve_kernel.fused_inputs(primal, dual, Y0, cfg)
+    assert kw["feas_dual"] is True
+    # the threshold panel is the slack alone
+    slack = torch.clamp(cfg.erc * primal.Kp, min=cfg.eac)
+    assert torch.equal(args[10], slack)
+    got = solve_kernel.solve_fused(primal, dual, Y0=Y0, cfg=cfg)
+    want = solve_batched(primal, dual, Y0=Y0, cfg=cfg)
+    assert bool(want.converged.all())
+    assert torch.equal(got.converged, want.converged)
+    assert int((got.iters - want.iters).abs().max()) <= cfg.check_every
+    assert float((got.U - want.U).abs().max()) <= 1e-5
+
+
+def _verdict_iterates(primal, dual):
+    """Iterates of every kind for one verdict: solved lanes, lanes a few
+    updates from their cold start, and a NaN lane."""
+    from pqp_for_mpc_tpu_torch.solver import solve_batched
+
+    solved = solve_batched(primal, dual, cfg=MPC_CONFIG).Y
+    Y = solved.clone()
+    few = solve_batched(primal, dual, cfg=dataclasses.replace(
+        MPC_CONFIG, max_iters=8)).Y
+    Y[:, 1::3] = few[:, 1::3]
+    Y[5, 4] = float("nan")
+    return Y
+
+
+@pytest.mark.parametrize("feas_dual", [True, False])
+def test_fused_result_verdict_is_check_terminates(feas_dual):
+    from pqp_for_mpc_tpu_torch.solver import check_terminate, recover_U
+
+    cfg = dataclasses.replace(MPC_CONFIG, feas_from_dual_gradient=feas_dual)
+    primal, dual = _port_workload(B, 2)
+    Y = _verdict_iterates(primal, dual)
+    ok, U, feas, Jp, Jd = check_terminate(primal, dual, Y, cfg)
+    assert 0 < int(ok.sum()) < B - 1 and not bool(ok[4])
+    lane_state = torch.full((B,), solve_kernel.LANE_MAX_ITERS,
+                            dtype=torch.int32)
+    res = solve_kernel.fused_result(primal, dual, cfg, Y, recover_U(
+        primal, Y), torch.zeros(B, dtype=torch.int32), lane_state)
+    assert torch.equal(res.converged, ok)
+    assert torch.equal(res.feasible, feas)
+    for got, want in ((res.Jp, Jp), (res.Jd, Jd), (res.U, U)):
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    # a lane the kernel certified stays certified, a NaN lane never is
+    cert = torch.full((B,), solve_kernel.LANE_CERTIFIED, dtype=torch.int32)
+    res = solve_kernel.fused_result(primal, dual, cfg, Y, U,
+                                    torch.zeros(B, dtype=torch.int32), cert)
+    assert torch.equal(res.converged, Y.isfinite().all(dim=0))
+
+
+def test_geometry_layout_is_built_once_per_geometry():
+    solve_kernel._LAYOUTS.clear()
+    _, dual = _port_workload(4, 3)
+    primal, _ = _port_workload(4, 3)
+    mats = [dual.Qdn_theta, dual.Qdp_theta, dual.Qd, primal.Gp, primal.Qp,
+            primal.Qp_inv]
+    first = solve_kernel.geometry_layout(*mats)
+    assert torch.equal(first, solve_kernel.engine_geometry(*mats))
+    assert solve_kernel.geometry_layout(*mats) is first
+    # a matrix written in place gets a new layout of its new values
+    mats[4].mul_(2.0)
+    second = solve_kernel.geometry_layout(*mats)
+    assert second is not first
+    assert torch.equal(second, solve_kernel.engine_geometry(*mats))
+    assert solve_kernel.geometry_layout(*mats) is second
+    # so does another tensor of the same values, and the cache is bounded
+    mats[2] = mats[2].clone()
+    assert solve_kernel.geometry_layout(*mats) is not second
+    kept = []
+    for _ in range(solve_kernel.LAYOUT_KEYS + 2):
+        mats[0] = mats[0].clone()
+        kept.append(mats[0])        # alive, so no two share an id
+        solve_kernel.geometry_layout(*mats)
+    assert len(solve_kernel._LAYOUTS) == solve_kernel.LAYOUT_KEYS
+
+
+def test_k8_refuses_the_dual_gradient_test():
+    from pqp_for_mpc_tpu_torch.ops import packed_kernel
+
+    primal, dual = _port_workload(4, 4)
+    args, kw = solve_kernel.fused_inputs(primal, dual, None, MPC_CONFIG)
+    with pytest.raises(TypeError, match="feas_dual"):
+        packed_kernel.fused_full_solve_packed(*args, **kw)
+    # its solve wrapper hands it the forcing-scale inputs
+    args, kw = solve_kernel.fused_inputs(primal, dual, None, MPC_CONFIG,
+                                         feas_dual=False)
+    assert "feas_dual" not in kw
+    res = packed_kernel.solve_fused_packed(primal, dual, cfg=MPC_CONFIG)
+    assert bool(res.converged.all())

@@ -45,7 +45,10 @@ ROUTES = [
     ((28, 1 << 22, SMOKE, False, "cuda", 7), "fused"),
     ((28, 1 << 22, SMOKE, True, "cuda", 7), "fused"),
     ((28, 64, SMOKE, False, "cuda", 7), "xla"),          # small batch
-    ((28, 4096, MPC_CONFIG, False, "cuda", 7), "xla"),   # dual-grad cert
+    ((28, 4096, MPC_CONFIG, False, "cuda", 7), "fused"),  # dual-grad cert
+    # the warm control step: one lane, MPC_CONFIG's certificate
+    ((28, 1, MPC_CONFIG, True, "cuda", 7), "fused"),
+    ((68, 1, MPC_CONFIG, True, "cuda", 17), "xla"),      # past K1's line
     ((200, 4096, SMOKE, False, "cuda", 50), "mixed"),    # past residency
     # warm and single-lane past residency: still "mixed" (the tree tests
     # residency before batch size, as the JAX package's does)
@@ -55,6 +58,15 @@ ROUTES = [
     ((64, 4096, SMOKE, False, "cuda", 16), "fused"),     # K1's crossover
     ((68, 4096, SMOKE, False, "cuda", 17), "xla"),       # past it
     ((120, 1 << 16, SMOKE, False, "cuda", 30), "xla"),
+    # the forcing-scale test keeps the plain path under the lane width,
+    # warm or cold; the dual-gradient test takes K1 at every batch
+    ((28, 1, SMOKE, True, "cuda", 7), "xla"),
+    ((30, 1, SMOKE, False, "cuda", 12), "xla"),          # solve-file's
+    ((28, 127, SMOKE, False, "cuda", 7), "xla"),
+    ((28, 128, SMOKE, True, "cuda", 7), "fused"),
+    ((28, 1, MPC_CONFIG, False, "cuda", 7), "fused"),
+    ((64, 127, MPC_CONFIG, True, "cuda", 16), "fused"),
+    ((28, 1, MPC_CONFIG, True, "cpu", 7), "xla"),
 ]
 
 
