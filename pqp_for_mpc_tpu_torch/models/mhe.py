@@ -51,6 +51,7 @@ import torch
 
 from pqp_for_mpc_tpu_torch.config import MPC_CONFIG
 from pqp_for_mpc_tpu_torch.dual import dual_geometry, dualize_forcing
+from pqp_for_mpc_tpu_torch.lanes import cold_start
 from pqp_for_mpc_tpu_torch.models.estimator import filter_dare
 from pqp_for_mpc_tpu_torch.models.mpc import (MPCSpec,
                                               _prediction_matrices_f64,
@@ -254,8 +255,7 @@ class MovingHorizonEstimator:
         steps = _check_record(u_seq, y_seq, N)
         out = _RecordBuffers(steps, self.plant.n_state, self.device)
         x_bar = _f32(x_bar0, self.device).reshape(-1)
-        Y = torch.full((self.data.n_con, 1), self.cfg.y0,
-                       dtype=torch.float32, device=self.device)
+        Y = cold_start(self.data.n_con, 1, self.cfg, self.device)
         for k in range(steps):
             xs, res = self._window(x_bar, u_seq[k:k + N], y_seq[k:k + N],
                                    torch.clamp(Y, min=self.warm_start_floor))
@@ -390,8 +390,7 @@ class NonlinearMHE:
         """The record's first noise and dual warm starts."""
         return (torch.zeros((self.window, self._ns), dtype=torch.float32,
                             device=self.device),
-                torch.full((self._sd0.n_con, 1), self.cfg.y0,
-                           dtype=torch.float32, device=self.device))
+                cold_start(self._sd0.n_con, 1, self.cfg, self.device))
 
     def _roll(self, x_bar, u_win, W):
         """States entering each stage ``(N, ns)`` and the states each stage

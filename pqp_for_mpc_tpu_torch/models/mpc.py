@@ -38,6 +38,7 @@ import torch
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
 from pqp_for_mpc_tpu_torch.dual import dual_geometry, dualize_forcing
+from pqp_for_mpc_tpu_torch.lanes import cold_start
 from pqp_for_mpc_tpu_torch.models.plants import LinearPlant
 from pqp_for_mpc_tpu_torch.models.stagewise import (solve_stagewise,
                                                     stagewise_dual)
@@ -853,7 +854,7 @@ class MPCController:
                    + torch.arange(H, device=dev)[None, :])
             wins = df[idx]
         A, Bm, Em = (self._as_f32(m) for m in (plant.A, plant.B, plant.E))
-        Y_cold = torch.full((self.n_con, 1), cfg.y0, dtype=f32, device=dev)
+        Y_cold = cold_start(self.n_con, 1, cfg, dev)
         x = self._as_f32(x0).reshape(ns)
         u_prev = torch.zeros(nu, dtype=f32, device=dev)
         Y = Y_cold

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from pqp_for_mpc_tpu_torch.dual import dualize_forcing
+from pqp_for_mpc_tpu_torch.lanes import cold_start
 from pqp_for_mpc_tpu_torch.models.estimator import KalmanFilter
 from pqp_for_mpc_tpu_torch.models.mpc import MPCController, MPCSpec
 from pqp_for_mpc_tpu_torch.models.plants import LinearPlant
@@ -385,7 +386,7 @@ class OffsetFreeController:
         A, Bm, Em = (c._as_f32(m) for m in (plant.A, plant.B, plant.E))
         C, Bd, Cd = self._C, self._Bd, self._Cd
         kf = self.estimator
-        Y_cold = torch.full((c.n_con, 1), c.cfg.y0, dtype=f32, device=dev)
+        Y_cold = cold_start(c.n_con, 1, c.cfg, dev)
         traj = dict(x=torch.empty((steps, ns), dtype=f32, device=dev),
                     y=torch.empty((steps, ny), dtype=f32, device=dev),
                     u=torch.empty((steps, nu), dtype=f32, device=dev),

@@ -51,8 +51,11 @@ import torch
 import torch.nn.functional as F
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
+from pqp_for_mpc_tpu_torch.lanes import (SolveResult, certificate_slack,
+                                         cold_start, lane_batch,
+                                         termination_fail)
 from pqp_for_mpc_tpu_torch.problem import resolve_device
-from pqp_for_mpc_tpu_torch.solver import SolveResult, retry_cold_solve
+from pqp_for_mpc_tpu_torch.solver import retry_cold_solve
 from pqp_for_mpc_tpu_torch.utils import tracing
 
 
@@ -807,7 +810,7 @@ def solve_stagewise(dual: StagewiseDual, x0: torch.Tensor,
         th_col = torch.cat([th_col, _flat(dual.theta_out[..., None])])
     if dual.has_soft:
         th_col = torch.cat([th_col, _flat(dual.theta_soft[..., None])])
-    kp_slack = kp_full + torch.clamp(cfg.erc * kp_full, min=cfg.eac)
+    kp_slack = kp_full + certificate_slack(kp_full, cfg.erc, cfg.eac)
 
     def kkt_gty(Yf):
         """Z = Qp^-1 G' Y, the shared inner solve: (N, B) -> (H, nu, B)."""
@@ -892,29 +895,12 @@ def solve_stagewise(dual: StagewiseDual, x0: torch.Tensor,
         quad = quad + (U * (f.R @ U)).sum(dim=(0, 1))
         quad = quad + (xs[-1] * (f.P @ xs[-1])).sum(dim=0)
         Jp = quad + s_pen + (Fp * U).sum(dim=(0, 1)) + 0.5 * Mp
-        if cfg.gap_from_complementarity:
-            gap = (Yf * (qdY + Fd)).sum(dim=0)
-            weak = gap > 0.0
-        else:
-            gap = Jp + Jd
-            weak = Jp > -Jd
-        fail = ~feas | (gap > cfg.eaj) | (gap / Jd.abs() > cfg.erj)
-        if cfg.strict_weak_duality:
-            fail = fail | weak
-        return ~fail, U, feas, Jp, Jd
+        gap = ((Yf * (qdY + Fd)).sum(dim=0)
+               if cfg.gap_from_complementarity else None)
+        return ~termination_fail(feas, Jp, Jd, cfg, gap), U, feas, Jp, Jd
 
     warm = Y0 is not None
-    if Y0 is None:
-        Y0 = torch.full((N, B), cfg.y0, dtype=torch.float32, device=dev)
-    else:
-        # a single warm start seeds the whole batch; a mismatched batch is
-        # an error (recycling lane 0 would be a quiet wrong answer)
-        Y0 = Y0 if Y0.dim() == 2 else Y0[:, None]
-        if Y0.shape[1] == 1 and B > 1:
-            Y0 = Y0.expand(N, B)
-        elif Y0.shape[1] != B:
-            raise ValueError(
-                f"warm start batch {Y0.shape[1]} != instance batch {B}")
+    Y0, _ = lane_batch(dual, Y0, cfg, x0=x0)
     k = cfg.check_every
 
     def masked_updates(Y, done, n):
@@ -962,6 +948,5 @@ def solve_stagewise(dual: StagewiseDual, x0: torch.Tensor,
                            Jp=Jp, Jd=Jd, diverged=div)
 
     if retry_cold and warm:
-        Y_cold = torch.full((N, B), cfg.y0, dtype=torch.float32, device=dev)
-        return retry_cold_solve(solve_once, Y0, Y_cold)
+        return retry_cold_solve(solve_once, Y0, cold_start(N, B, cfg, dev))
     return solve_once(Y0)

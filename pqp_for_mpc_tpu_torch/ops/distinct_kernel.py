@@ -31,6 +31,10 @@ from typing import Optional
 import torch
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
+from pqp_for_mpc_tpu_torch.lanes import (SolveResult, certificate_slack, costs,
+                                         feasibility, kernel_kwargs,
+                                         lane_batch, lane_panels,
+                                         termination_fail)
 from pqp_for_mpc_tpu_torch.ops import build
 from pqp_for_mpc_tpu_torch.ops.kernels import (SMEM_LIMIT_BYTES, _matrix,
                                                _on_cuda, _round4)
@@ -44,7 +48,7 @@ from pqp_for_mpc_tpu_torch.utils import tracing
 #: (``pqp_for_mpc_tpu/ops/distinct_kernel.py:52-69``), carried over as a
 #: provisional line.  Counted without the TPU's (8, 128) padding it crosses
 #: near N = 1,200 at M = N/4 (the TPU's padded count, near 1,150).  An H100
-#: cell is to re-derive it (ROADMAP queue 1, item 5).
+#: cell is to re-derive it (ROADMAP item 4.5c).
 DISTINCT_OPERAND_BUDGET = 20 * 1024 * 1024
 
 def distinct_fits_resident(n: int, m: int) -> bool:
@@ -289,8 +293,6 @@ def distinct_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
     identically, for :func:`fused_full_solve_distinct_reference`.  Raises
     on 2-D ``Qd``, on a split-free dual and on a warm start whose batch is
     neither 1 nor B."""
-    from pqp_for_mpc_tpu_torch.solver import _as2d
-
     cfg = cfg or SolverConfig()
     if dual.Qd.dim() != 3:
         raise ValueError("solve_fused_distinct needs Qd (B, N, N); use "
@@ -301,43 +303,22 @@ def distinct_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
             "the dual with dualize_distinct(materialize_splits=True), or use "
             "solve_fused_distinct_tiled (it never needs them); the JAX "
             "package fails here with an opaque TypeError")
-    B, N, _ = dual.Qd.shape
-    M = primal.Gp.shape[-1]
-    if Y0 is None:
-        Y0 = torch.full((N, B), cfg.y0, dtype=torch.float32,
-                        device=dual.Qd.device)
-    else:
-        Y0 = _as2d(Y0)
-        if Y0.shape[1] == 1 and B > 1:
-            Y0 = Y0.expand(N, B)
-        elif Y0.shape[1] != B:
-            raise ValueError(
-                f"warm start batch {Y0.shape[1]} != instance batch {B}")
-    kp_slack = primal.Kp + torch.clamp(cfg.erc * primal.Kp, min=cfg.eac)
+    Y0, B = lane_batch(dual, Y0, cfg)
+    kp_slack = primal.Kp + certificate_slack(primal.Kp, cfg.erc, cfg.eac)
+    Fp, Fd, Fdp, Fdn, Mp, Md = lane_panels(primal, dual, B)
     args = (dual.Qdn_theta, dual.Qdp_theta, dual.Qd, primal.Gp, primal.Qp,
-            primal.Qp_inv, _as2d(primal.Fp).expand(M, B),
-            _as2d(dual.Fd).expand(N, B), _as2d(dual.Fdp).expand(N, B),
-            _as2d(dual.Fdn).expand(N, B), kp_slack,
-            primal.Mp.reshape(-1).expand(B), dual.Md.reshape(-1).expand(B),
-            Y0)
-    kwargs = dict(max_iters=cfg.max_iters, check_every=cfg.check_every,
-                  accel_every=cfg.accel_every, eaj=cfg.eaj, erj=cfg.erj,
-                  strict=cfg.strict_weak_duality, den_eps=cfg.den_eps,
-                  precision=cfg.precision)
-    return args, kwargs
+            primal.Qp_inv, Fp, Fd, Fdp, Fdn, kp_slack, Mp, Md, Y0)
+    return args, dict(kernel_kwargs(cfg), accel_every=cfg.accel_every)
 
 
 def distinct_result(primal, dual, cfg: Optional[SolverConfig], Y, U, iters,
                     lane_state):
-    """A :class:`~pqp_for_mpc_tpu_torch.solver.SolveResult` from K5's
+    """A :class:`~pqp_for_mpc_tpu_torch.lanes.SolveResult` from K5's
     outputs, with the JAX wrapper's rescue
     (``pqp_for_mpc_tpu/ops/distinct_kernel.py:351-360``): feasibility and
     costs recomputed in PyTorch, and a stall-frozen instance counts as
     converged when its exit state passes the verdict with the explicit
     gap, the kernel's own certificate."""
-    from pqp_for_mpc_tpu_torch.solver import (SolveResult, costs,
-                                              feasibility, termination_fail)
-
     cfg = cfg or SolverConfig()
     feas = feasibility(primal, U, cfg.erc, cfg.eac)
     Jp, Jd = costs(primal, dual, Y, U)
@@ -352,7 +333,7 @@ def distinct_result(primal, dual, cfg: Optional[SolverConfig], Y, U, iters,
 
 def solve_fused_distinct(primal, dual, Y0: Optional[torch.Tensor] = None,
                          cfg: Optional[SolverConfig] = None):
-    """Drop-in analog of :func:`pqp_for_mpc_tpu_torch.solver.solve_batched`
+    """Drop-in analog of the plain engine's ``solver.solve_batched``
     for distinct-geometry batches in one launch; see
     :func:`distinct_inputs` and :func:`distinct_result`."""
     args, kwargs = distinct_inputs(primal, dual, Y0, cfg)

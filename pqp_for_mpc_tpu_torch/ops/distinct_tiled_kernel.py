@@ -42,6 +42,9 @@ from typing import Optional
 import torch
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
+from pqp_for_mpc_tpu_torch.lanes import (_as2d, _mv, _mvT, certificate_slack,
+                                         kernel_kwargs, lane_batch,
+                                         lane_panels)
 from pqp_for_mpc_tpu_torch.ops import build
 from pqp_for_mpc_tpu_torch.ops.distinct_kernel import (aligned,
                                                        instance_matrix,
@@ -53,7 +56,6 @@ from pqp_for_mpc_tpu_torch.ops.solve_kernel import (LANE_CERTIFIED,
                                                     LANE_STALLED,
                                                     fused_result)
 from pqp_for_mpc_tpu_torch.ops.tiled_kernel import STREAM_DTYPES
-from pqp_for_mpc_tpu_torch.solver import _as2d, _mv, _mvT
 from pqp_for_mpc_tpu_torch.utils import tracing
 
 #: largest N of K7: the product's copy of one instance's y in shared memory
@@ -515,34 +517,20 @@ def distinct_tiled_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
             "step costs three extra Hessian streams)")
     if dual.Qd.dim() != 3:
         raise ValueError("solve_fused_distinct_tiled needs Qd (B, N, N)")
-    B, N, _ = dual.Qd.shape
-    M = primal.Gp.shape[-1]
-    theta = dual.theta.reshape(-1, N).expand(B, N)
-    if Y0 is None:
-        Y0 = torch.full((N, B), cfg.y0, dtype=torch.float32,
-                        device=dual.Qd.device)
-    else:
-        Y0 = _as2d(Y0)
-        if Y0.shape[1] == 1 and B > 1:
-            Y0 = Y0.expand(N, B)
-    kp_slack = primal.Kp + torch.clamp(cfg.erc * primal.Kp, min=cfg.eac)
-    args = (dual.Qd, theta, primal.Gp, primal.Qp, primal.Qp_inv,
-            _as2d(primal.Fp).expand(M, B), _as2d(dual.Fd).expand(N, B),
-            _as2d(dual.Fdp).expand(N, B), _as2d(dual.Fdn).expand(N, B),
-            kp_slack, primal.Mp.reshape(-1).expand(B),
-            dual.Md.reshape(-1).expand(B), Y0)
-    kwargs = dict(max_iters=cfg.max_iters, check_every=cfg.check_every,
-                  accel=cfg.accel_every > 0, eaj=cfg.eaj, erj=cfg.erj,
-                  strict=cfg.strict_weak_duality, den_eps=cfg.den_eps,
-                  precision=cfg.precision,
-                  gap_comp=cfg.gap_from_complementarity)
-    return args, kwargs
+    Y0, B = lane_batch(dual, Y0, cfg)
+    theta = dual.theta.reshape(-1, dual.n_con).expand(B, dual.n_con)
+    kp_slack = primal.Kp + certificate_slack(primal.Kp, cfg.erc, cfg.eac)
+    Fp, Fd, Fdp, Fdn, Mp, Md = lane_panels(primal, dual, B)
+    args = (dual.Qd, theta, primal.Gp, primal.Qp, primal.Qp_inv, Fp, Fd,
+            Fdp, Fdn, kp_slack, Mp, Md, Y0)
+    return args, dict(kernel_kwargs(cfg), accel=cfg.accel_every > 0,
+                      gap_comp=cfg.gap_from_complementarity)
 
 
 def solve_fused_distinct_tiled(primal, dual,
                                Y0: Optional[torch.Tensor] = None,
                                cfg: Optional[SolverConfig] = None):
-    """Drop-in analog of :func:`pqp_for_mpc_tpu_torch.solver.solve_batched`
+    """Drop-in analog of the plain engine's ``solver.solve_batched``
     for distinct instances past K5: the whole solve in one launch, each
     instance's geometry streamed.  Takes a split-free dual
     (``dualize_distinct(materialize_splits=False)``).  A lane the kernel did

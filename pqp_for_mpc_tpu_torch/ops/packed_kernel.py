@@ -20,7 +20,7 @@ lane state and iteration stamps live per segment.  The function is K1's
   lane, and a failed build or launch raises.
   ``fused_full_solve_packed.launches`` counts the launches.
 * :func:`solve_fused_packed` wraps it into a
-  :class:`~pqp_for_mpc_tpu_torch.solver.SolveResult` with the rescue of
+  :class:`~pqp_for_mpc_tpu_torch.lanes.SolveResult` with the rescue of
   :func:`~pqp_for_mpc_tpu_torch.ops.solve_kernel.fused_result`.  Nothing
   routes to it (nor in the JAX package): it is an explicit entry point.
 

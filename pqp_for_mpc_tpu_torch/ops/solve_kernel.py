@@ -20,12 +20,12 @@ kernel's codes): 0 = hit max_iters while active, 1 = certified by the
 in-kernel termination test, 2 = stall-frozen at a fixed point without
 certificate, 3 = batch padding (never produced here: the kernel needs no
 padding).  :func:`solve_fused` wraps it into a
-:class:`~pqp_for_mpc_tpu_torch.solver.SolveResult`.
+:class:`~pqp_for_mpc_tpu_torch.lanes.SolveResult`.
 
 Feasibility: the TPU kernel's forcing-scale test ``Gp U > Kp_slack``, or,
 with ``feas_dual`` (:func:`fused_inputs` sets it where the cfg asks for
 ``feas_from_dual_gradient``), the dual-gradient test of
-:func:`~pqp_for_mpc_tpu_torch.solver.check_terminate` on the ``Qd Y`` the
+:func:`~pqp_for_mpc_tpu_torch.lanes.check_terminate` on the ``Qd Y`` the
 check forms for its gap, with ``Kp_slack`` then holding the slack
 ``max(erc*Kp, eac)``.  The TPU kernel has no such test (a deliberate
 difference, ROADMAP queue 3).
@@ -46,6 +46,9 @@ from typing import Optional
 import torch
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
+from pqp_for_mpc_tpu_torch.lanes import (SolveResult, _mv, _mvT, certificate,
+                                         certificate_slack, kernel_kwargs,
+                                         lane_batch, lane_panels, remember)
 from pqp_for_mpc_tpu_torch.ops import build
 from pqp_for_mpc_tpu_torch.ops.kernels import (N_MAX, SMEM_LIMIT_BYTES,
                                                _matrix, _on_cuda, _panel,
@@ -167,11 +170,10 @@ def geometry_layout(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv):
     """:func:`engine_geometry` of these matrices, built once per geometry:
     a controller solves every step on the same tensors, so its layout is
     reused.  The key is each matrix's identity, the entry a
-    ``solver.IdentityEntry`` stamped with each matrix's data pointer and
+    ``lanes.IdentityEntry`` stamped with each matrix's data pointer and
     version counter, so a matrix written in place, or moved, gets a new
     layout.  Inference tensors, which keep no version counter, are laid
     out on every call."""
-    from pqp_for_mpc_tpu_torch.solver import remember
     mats = (Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv)
     if any(t.is_inference() for t in mats):
         return engine_geometry(*mats)
@@ -204,8 +206,6 @@ def fused_full_solve_reference(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
     (``(B, N, N)``, ...): this body is then the plain version of the
     distinct-geometry kernel K5 too
     (:mod:`pqp_for_mpc_tpu_torch.ops.distinct_kernel`)."""
-    from pqp_for_mpc_tpu_torch.solver import _mv, _mvT
-
     N, B = Y0.shape
     M = Gp.shape[-1]
     lanes = lambda t, r: t.reshape(r, -1).expand(r, B)
@@ -408,8 +408,6 @@ def fused_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
     test: the threshold panel is then the slack ``max(erc*Kp, eac)`` and
     ``kwargs`` carries ``feas_dual=True``; without it ``kwargs`` are the
     TPU kernel's."""
-    from pqp_for_mpc_tpu_torch.solver import _as2d
-
     cfg = cfg or SolverConfig()
     if dual.Qd.dim() != 2:
         raise ValueError(f"{name} requires shared Qd geometry")
@@ -418,38 +416,19 @@ def fused_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
             f"{name} holds the MATERIALIZED Qd splits in shared memory "
             "— rebuild the dual with dualize(materialize_splits=True), or "
             "use solve_batched (it never needs them)")
-    N = dual.n_con
-    Fd2 = _as2d(dual.Fd)
-    B = Fd2.shape[1]
-    if Y0 is None:
-        Y0 = torch.full((N, B), cfg.y0, dtype=torch.float32,
-                        device=dual.Qd.device)
-    else:
-        Y0 = _as2d(Y0)
-        if Y0.shape[1] == 1 and B > 1:
-            Y0 = Y0.expand(N, B)
-        elif B > 1 and Y0.shape[1] != B:
-            raise ValueError(
-                f"warm start batch {Y0.shape[1]} != instance batch {B}")
-        B = max(B, Y0.shape[1])
-    M = primal.Gp.shape[1]
+    Y0, B = lane_batch(dual, Y0, cfg)
     if feas_dual is None:
         feas_dual = cfg.feas_from_dual_gradient
-    kp_slack = torch.clamp(cfg.erc * primal.Kp, min=cfg.eac)
+    kp_slack = certificate_slack(primal.Kp, cfg.erc, cfg.eac)
     if not feas_dual:
         kp_slack = primal.Kp + kp_slack
     if kp_slack.dim() == 2 and kp_slack.shape[1] not in (1, B):
         raise ValueError(
             f"Kp batch {kp_slack.shape[1]} != instance batch {B}")
+    Fp, Fd, Fdp, Fdn, Mp, Md = lane_panels(primal, dual, B)
     args = (dual.Qdn_theta, dual.Qdp_theta, dual.Qd, primal.Gp, primal.Qp,
-            primal.Qp_inv, _as2d(primal.Fp).expand(M, B), Fd2.expand(N, B),
-            _as2d(dual.Fdp).expand(N, B), _as2d(dual.Fdn).expand(N, B),
-            kp_slack, primal.Mp.reshape(-1).expand(B),
-            dual.Md.reshape(-1).expand(B), Y0)
-    kwargs = dict(max_iters=cfg.max_iters, check_every=cfg.check_every,
-                  accel_every=cfg.accel_every, eaj=cfg.eaj, erj=cfg.erj,
-                  strict=cfg.strict_weak_duality, den_eps=cfg.den_eps,
-                  precision=cfg.precision,
+            primal.Qp_inv, Fp, Fd, Fdp, Fdn, kp_slack, Mp, Md, Y0)
+    kwargs = dict(kernel_kwargs(cfg), accel_every=cfg.accel_every,
                   gap_comp=cfg.gap_from_complementarity)
     if feas_dual:
         kwargs["feas_dual"] = True
@@ -458,16 +437,14 @@ def fused_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
 
 def fused_result(primal, dual, cfg: Optional[SolverConfig], Y, U, iters,
                  lane_state):
-    """A :class:`~pqp_for_mpc_tpu_torch.solver.SolveResult` from the
+    """A :class:`~pqp_for_mpc_tpu_torch.lanes.SolveResult` from the
     kernel's outputs.  The exit-time costs and feasibility are recomputed
     in PyTorch under the cfg's certificate
-    (:func:`~pqp_for_mpc_tpu_torch.solver.certificate`, the verdict of
+    (:func:`~pqp_for_mpc_tpu_torch.lanes.certificate`, the verdict of
     ``check_terminate``), and a lane the kernel did not certify
     (stall-frozen or out of iterations) counts as converged when its exit
     state passes the verdict there — the rescue of
     ``pqp_for_mpc_tpu/ops/solve_kernel.py:464-490``."""
-    from pqp_for_mpc_tpu_torch.solver import SolveResult, certificate
-
     cfg = cfg or SolverConfig()
     fail, feas, Jp, Jd = certificate(primal, dual, Y, U, cfg)
     div = ~torch.isfinite(Y).all(dim=0)
@@ -479,7 +456,7 @@ def fused_result(primal, dual, cfg: Optional[SolverConfig], Y, U, iters,
 
 def solve_fused(primal, dual, Y0: Optional[torch.Tensor] = None,
                 cfg: Optional[SolverConfig] = None):
-    """Drop-in analog of :func:`pqp_for_mpc_tpu_torch.solver.solve_batched`
+    """Drop-in analog of the plain engine's ``solver.solve_batched``
     running the whole solve in one launch (shared geometry only); see
     :func:`fused_inputs` and :func:`fused_result`."""
     args, kwargs = fused_inputs(primal, dual, Y0, cfg)

@@ -34,10 +34,10 @@ from __future__ import annotations
 
 import torch
 
+from pqp_for_mpc_tpu_torch.lanes import _as2d
 from pqp_for_mpc_tpu_torch.ops import build
 from pqp_for_mpc_tpu_torch.ops.kernels import (_aligned16, _matrix,
                                                _on_cuda, _panel)
-from pqp_for_mpc_tpu_torch.solver import _as2d
 from pqp_for_mpc_tpu_torch.utils import tracing
 
 STREAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

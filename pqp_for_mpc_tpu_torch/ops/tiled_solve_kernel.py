@@ -34,6 +34,8 @@ from typing import Optional
 import torch
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
+from pqp_for_mpc_tpu_torch.lanes import (certificate_slack, kernel_kwargs,
+                                         lane_batch, lane_panels)
 from pqp_for_mpc_tpu_torch.ops import build
 from pqp_for_mpc_tpu_torch.ops.kernels import (_aligned16, _matrix,
                                                _on_cuda)
@@ -259,8 +261,6 @@ def tiled_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
     JAX wrapper's two ValueErrors: ``accel_every`` not in
     ``{0, check_every}`` here, an odd ``check_every`` in the kernel's
     wrapper."""
-    from pqp_for_mpc_tpu_torch.solver import _as2d
-
     cfg = cfg or SolverConfig()
     if cfg.accel_every not in (0, cfg.check_every):
         raise ValueError(
@@ -269,35 +269,18 @@ def tiled_inputs(primal, dual, Y0: Optional[torch.Tensor] = None,
             "extra Hessian streams)")
     if dual.Qd.dim() != 2:
         raise ValueError("solve_fused_tiled requires shared Qd geometry")
-    N = dual.n_con
-    Fd2 = _as2d(dual.Fd)
-    B = Fd2.shape[1]
-    if Y0 is None:
-        Y0 = torch.full((N, B), cfg.y0, dtype=torch.float32,
-                        device=dual.Qd.device)
-    else:
-        Y0 = _as2d(Y0)
-        if Y0.shape[1] == 1 and B > 1:
-            Y0 = Y0.expand(N, B)
-        B = max(B, Y0.shape[1])
-    M = primal.Gp.shape[1]
-    kp_slack = primal.Kp + torch.clamp(cfg.erc * primal.Kp, min=cfg.eac)
-    args = (dual.Qd, dual.theta, primal.Gp, primal.Qp, primal.Qp_inv,
-            _as2d(primal.Fp).expand(M, B), Fd2.expand(N, B),
-            _as2d(dual.Fdp).expand(N, B), _as2d(dual.Fdn).expand(N, B),
-            kp_slack, primal.Mp.reshape(-1).expand(B),
-            dual.Md.reshape(-1).expand(B), Y0)
-    kwargs = dict(max_iters=cfg.max_iters, check_every=cfg.check_every,
-                  accel=cfg.accel_every > 0, eaj=cfg.eaj, erj=cfg.erj,
-                  strict=cfg.strict_weak_duality, den_eps=cfg.den_eps,
-                  precision=cfg.precision,
-                  gap_comp=cfg.gap_from_complementarity)
-    return args, kwargs
+    Y0, B = lane_batch(dual, Y0, cfg)
+    kp_slack = primal.Kp + certificate_slack(primal.Kp, cfg.erc, cfg.eac)
+    Fp, Fd, Fdp, Fdn, Mp, Md = lane_panels(primal, dual, B)
+    args = (dual.Qd, dual.theta, primal.Gp, primal.Qp, primal.Qp_inv, Fp,
+            Fd, Fdp, Fdn, kp_slack, Mp, Md, Y0)
+    return args, dict(kernel_kwargs(cfg), accel=cfg.accel_every > 0,
+                      gap_comp=cfg.gap_from_complementarity)
 
 
 def solve_fused_tiled(primal, dual, Y0: Optional[torch.Tensor] = None,
                       cfg: Optional[SolverConfig] = None):
-    """Drop-in analog of :func:`pqp_for_mpc_tpu_torch.solver.solve_batched`
+    """Drop-in analog of the plain engine's ``solver.solve_batched``
     for N past residency: the whole solve in one launch, Hessian streamed.
     ``cfg.accel_every`` must be 0 or ``check_every``, and ``check_every``
     even (:func:`tiled_inputs`).  A lane the kernel did not certify counts

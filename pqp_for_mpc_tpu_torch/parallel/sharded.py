@@ -31,9 +31,11 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Shard
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
+from pqp_for_mpc_tpu_torch.lanes import (SolveResult, _as2d,
+                                         certificate_slack, cold_start,
+                                         termination_fail)
 from pqp_for_mpc_tpu_torch.parallel.mesh import batch_sharding, replicated
 from pqp_for_mpc_tpu_torch.problem import DualQP, PrimalQP
-from pqp_for_mpc_tpu_torch.solver import SolveResult, _as2d
 
 
 def local_shard(x: torch.Tensor, mesh: DeviceMesh, placements) -> torch.Tensor:
@@ -167,7 +169,7 @@ def solve_row_sharded(primal: PrimalQP, dual: DualQP,
     Mp_l = primal.Mp.reshape(-1).expand(B)[cols]
     Md_l = dual.Md.reshape(-1).expand(B)[cols]
     if Y0 is None:
-        Y_b = torch.full((Nl, Bl), cfg.y0, dtype=torch.float32, device=dev)
+        Y_b = cold_start(Nl, Bl, cfg, dev)
     else:
         Y_b = panel(Y0).clone(memory_format=torch.contiguous_format)
     k = cfg.check_every
@@ -192,7 +194,7 @@ def solve_row_sharded(primal: PrimalQP, dual: DualQP,
         dist.all_reduce(n)
         return int(n.item())
 
-    slack_b = Kp_b + torch.clamp(cfg.erc * Kp_b, min=cfg.eac)
+    slack_b = Kp_b + certificate_slack(Kp_b, cfg.erc, cfg.eac)
 
     def check(Yb):
         """(ok, U, feas, Jp, Jd, gap, nbad): the four-part verdict on the
@@ -209,14 +211,9 @@ def solve_row_sharded(primal: PrimalQP, dual: DualQP,
         Jd = Jd + 0.5 * Md_l
         Jp = (0.5 * (U * (Qp @ U)).sum(dim=0) + (Fp_l * U).sum(dim=0)
               + 0.5 * Mp_l)
-        if cfg.gap_from_complementarity:
-            weak = gap > 0.0
-        else:
+        if not cfg.gap_from_complementarity:
             gap = Jp + Jd
-            weak = Jp > -Jd
-        fail = ~feas | (gap > cfg.eaj) | (gap / Jd.abs() > cfg.erj)
-        if cfg.strict_weak_duality:
-            fail = fail | weak
+        fail = termination_fail(feas, Jp, Jd, cfg, gap)
         return ~fail, U, feas, Jp, Jd, gap, nbad
 
     def update(Yb, frozen, Qn, Qp_, wire, th):

@@ -77,9 +77,11 @@ from typing import Optional
 import torch
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
+from pqp_for_mpc_tpu_torch.lanes import SolveResult, cold_start, lane_batch
+from pqp_for_mpc_tpu_torch.ops import (distinct_kernel, distinct_tiled_kernel,
+                                       kernels, solve_kernel)
 from pqp_for_mpc_tpu_torch.problem import DualQP, PrimalQP
-from pqp_for_mpc_tpu_torch.solver import (_LANE, SolveResult, _as2d,
-                                          _batch_of, retry_cold_solve,
+from pqp_for_mpc_tpu_torch.solver import (_LANE, retry_cold_solve,
                                           solve_batched, solve_mixed)
 from pqp_for_mpc_tpu_torch.utils import tracing
 
@@ -110,9 +112,8 @@ def route_solve(n_con: int, batch: int, distinct: bool,
     if platform != "cuda":
         return "xla"
     if distinct:
-        from pqp_for_mpc_tpu_torch.ops.distinct_kernel import \
-            distinct_fits_resident
-        if m_dim is None or not distinct_fits_resident(n_con, m_dim):
+        if m_dim is None or not distinct_kernel.distinct_fits_resident(
+                n_con, m_dim):
             return "mixed"
         if cfg.feas_from_dual_gradient or cfg.gap_from_complementarity:
             # K5 certifies with the forcing-scale Gp U test and the
@@ -120,16 +121,12 @@ def route_solve(n_con: int, batch: int, distinct: bool,
             # the plain check (the JAX package routes it to K5 regardless)
             return "xla"
         return "fused_distinct"
-    from pqp_for_mpc_tpu_torch.ops.kernels import fits_resident
-    if not fits_resident(n_con):
+    if not kernels.fits_resident(n_con):
         return "mixed"
     if n_con > FUSED_N_MAX:
         return "xla"
-    if m_dim is not None:
-        from pqp_for_mpc_tpu_torch.ops.solve_kernel import \
-            fits_resident as fused_fits
-        if not fused_fits(n_con, m_dim):
-            return "xla"
+    if m_dim is not None and not solve_kernel.fits_resident(n_con, m_dim):
+        return "xla"
     if batch < _LANE and not cfg.feas_from_dual_gradient:
         return "xla"
     return "fused"
@@ -153,14 +150,13 @@ def solve_auto(primal: PrimalQP, dual: DualQP,
     float32 phase is ``solve_batched``, which the JAX package crashes on);
     ``engine="fused_distinct_tiled"`` takes such a dual."""
     distinct = dual.Qd.dim() == 3
-    N = dual.n_con
-    B = _batch_of(dual)
-    if Y0 is not None and _as2d(Y0).shape[1] > B:
-        B = _as2d(Y0).shape[1]
+    warm = Y0 is not None
+    Y0, B = lane_batch(dual, Y0, cfg)
     platform = dual.Qd.device.type
     if engine is None:
-        engine = route_solve(N, B, distinct, cfg, m_dim=primal.n_var,
-                             platform=platform, warm=Y0 is not None)
+        engine = route_solve(dual.n_con, B, distinct, cfg,
+                             m_dim=primal.n_var, platform=platform,
+                             warm=warm)
         if dual.Qdn_theta is None and engine in ("fused", "fused_distinct"):
             engine = "mixed" if distinct else "xla"
     if engine not in ENGINES:
@@ -171,17 +167,18 @@ def solve_auto(primal: PrimalQP, dual: DualQP,
             f"{platform!r} — use engine='xla' or 'mixed'")
     tracing.count("route." + engine)
     with tracing.span("solve.auto"):
-        return _solve_on(engine, primal, dual, Y0, cfg, retry_cold, N, B)
+        return _solve_on(engine, primal, dual, Y0, cfg,
+                         retry_cold and warm)
 
 
 def _solve_on(engine: str, primal: PrimalQP, dual: DualQP,
-              Y0: Optional[torch.Tensor], cfg: SolverConfig,
-              retry_cold: bool, N: int, B: int) -> SolveResult:
-    """:func:`solve_auto` on the engine it chose."""
+              Y0: torch.Tensor, cfg: SolverConfig,
+              retry: bool) -> SolveResult:
+    """:func:`solve_auto` on the engine it chose, from the lanes' ``Y0
+    (N, B)``; ``retry``: re-solve failed lanes once from the cold start."""
     platform = dual.Qd.device.type
     if engine == "xla":
-        return solve_batched(primal, dual, Y0=Y0, cfg=cfg,
-                             retry_cold=retry_cold and Y0 is not None)
+        return solve_batched(primal, dual, Y0=Y0, cfg=cfg, retry_cold=retry)
     if engine == "mixed":
         if platform == "cuda" and cfg.accel_every:
             # the JAX package forces its bf16 streamed update kernels under
@@ -189,23 +186,15 @@ def _solve_on(engine: str, primal: PrimalQP, dual: DualQP,
             # only past residency
             cfg = dataclasses.replace(cfg, use_pallas=True)
         fn = lambda y0: solve_mixed(primal, dual, Y0=y0, cfg=cfg)
-    elif engine == "fused":
-        from pqp_for_mpc_tpu_torch.ops.solve_kernel import solve_fused
-        fn = lambda y0: solve_fused(primal, dual, Y0=y0, cfg=cfg)
-    elif engine == "fused_distinct":
-        from pqp_for_mpc_tpu_torch.ops.distinct_kernel import \
-            solve_fused_distinct
-        fn = lambda y0: solve_fused_distinct(primal, dual, Y0=y0, cfg=cfg)
     else:
-        from pqp_for_mpc_tpu_torch.ops.distinct_tiled_kernel import \
-            solve_fused_distinct_tiled
-        fn = lambda y0: solve_fused_distinct_tiled(primal, dual, Y0=y0,
-                                                   cfg=cfg)
-    if retry_cold and Y0 is not None:
-        Y_warm = torch.clamp(_as2d(Y0), min=0.0)
-        if Y_warm.shape[1] == 1 and B > 1:
-            Y_warm = Y_warm.expand(N, B)
-        Y_cold = torch.full((N, B), cfg.y0, dtype=torch.float32,
-                            device=dual.Qd.device)
-        return retry_cold_solve(fn, Y_warm, Y_cold)
+        solve = {"fused": solve_kernel.solve_fused,
+                 "fused_distinct": distinct_kernel.solve_fused_distinct,
+                 "fused_distinct_tiled":
+                     distinct_tiled_kernel.solve_fused_distinct_tiled}[engine]
+        fn = lambda y0: solve(primal, dual, Y0=y0, cfg=cfg)
+    if retry:
+        # the warm start floored at 0, as the JAX package's solve_auto does
+        N, B = Y0.shape
+        return retry_cold_solve(fn, torch.clamp(Y0, min=0.0),
+                                cold_start(N, B, cfg, Y0.device))
     return fn(Y0)

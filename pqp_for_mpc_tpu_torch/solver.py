@@ -39,17 +39,13 @@ result is cloned out of them.  Eight keys are kept, least recently used
 dropped first.  Everywhere else (the CPU, B >= 128, ``use_pallas``) the
 same blocks run eagerly.
 
-Convergence test (``terminate``, PQP_CPU.c:673-687), as the JAX package:
-
-1. feasibility: ``Gp U <= Kp + max(erc*Kp, eac)`` elementwise;
-2. weak duality: ``Jp <= -Jd``;
-3. absolute gap:  ``Jp + Jd <= eaj``;
-4. relative gap:  ``(Jp + Jd)/|Jd| <= erj``.
+The convergence test (``terminate``, PQP_CPU.c:673-687), the lane batch and
+the exit verdict are the lane contract every engine shares
+(:mod:`pqp_for_mpc_tpu_torch.lanes`; its names are re-exported here).
 
 Distinct geometry: a ``(B, N, N)`` ``Qd`` (``dual.dualize_distinct``)
-holds one geometry per instance, and every product goes through
-:func:`_mv`/:func:`_mvT`, the per-instance (batched) products of the JAX
-package's einsum branch.  :func:`solve_mixed` runs a bfloat16 bulk phase,
+holds one geometry per instance, and every product is per instance (the
+JAX package's einsum branch).  :func:`solve_mixed` runs a bfloat16 bulk phase,
 then certifies in float32 through :func:`solve_batched`, on either
 geometry.  ``precision`` arguments are accepted for the JAX signatures and
 ignored: products run in full float32.
@@ -59,67 +55,22 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import weakref
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 from pqp_for_mpc_tpu_torch.config import SolverConfig
+from pqp_for_mpc_tpu_torch.dual import dualize
+from pqp_for_mpc_tpu_torch.lanes import (  # noqa: F401
+    IdentityEntry, SolveResult, _as2d, _mv, _mvT, certificate,
+    check_terminate, cold_start, complementarity_gap, costs, feasibility,
+    lane_batch, recover_U, remember, termination_fail)
+from pqp_for_mpc_tpu_torch.ops import distinct_kernel as _distinct
+from pqp_for_mpc_tpu_torch.ops import distinct_tiled_kernel as _dt
+from pqp_for_mpc_tpu_torch.ops import kernels as _kernels
+from pqp_for_mpc_tpu_torch.ops import tiled_kernel as _tiled
 from pqp_for_mpc_tpu_torch.problem import DualQP, PrimalQP
 from pqp_for_mpc_tpu_torch.utils import tracing
-
-
-@dataclasses.dataclass(frozen=True)
-class SolveResult:
-    """Per-instance solve outputs (batched shapes shown; :func:`solve`
-    squeezes the batch axis away)."""
-
-    U: torch.Tensor           # (M, B) primal solution
-    Y: torch.Tensor           # (N, B) dual solution
-    iters: torch.Tensor       # (B,) int32 — the value of h (starting at 1)
-                              # at the first passing check
-                              # (PQP_CPU.c:714,739-741)
-    converged: torch.Tensor   # (B,) bool
-    feasible: torch.Tensor    # (B,) bool — constraint check at exit
-    Jp: torch.Tensor          # (B,) primal cost at exit
-    Jd: torch.Tensor          # (B,) dual cost at exit
-    diverged: Optional[torch.Tensor] = None  # (B,) bool — non-finite iterate
-
-    def stats(self) -> dict:
-        """Structured solve observability as plain Python scalars."""
-        a = lambda t: t.detach().cpu().numpy()
-        gap = a(self.Jp) + a(self.Jd)
-        jd = np.abs(a(self.Jd))
-        return {
-            "batch": int(a(self.iters).size),
-            "converged": int(a(self.converged).sum()),
-            "feasible": int(a(self.feasible).sum()),
-            "iters_mean": float(a(self.iters).mean()),
-            "iters_max": int(a(self.iters).max()),
-            "gap_abs_max": float(np.abs(gap).max()),
-            "gap_rel_max": float((np.abs(gap) / np.maximum(jd, 1e-30)).max()),
-        }
-
-
-def _as2d(v: torch.Tensor) -> torch.Tensor:
-    return v if v.dim() == 2 else v[:, None]
-
-
-def _mv(A: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """Matrix-vector over the batch: ``A (N, N)`` or per-instance
-    ``(B, N, N)``, ``Y (N, B)`` -> ``(N, B)``."""
-    if A.dim() == 2:
-        return A @ Y
-    return torch.einsum("bij,jb->ib", A, Y)
-
-
-def _mvT(A: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """Transposed matrix-vector over the batch: ``A (N, M)`` or
-    ``(B, N, M)``, ``Y (N, B)`` -> ``A' Y (M, B)``."""
-    if A.dim() == 2:
-        return A.T @ Y
-    return torch.einsum("bij,ib->jb", A, Y)
 
 
 def refuse_split_free_distinct(dual: DualQP) -> None:
@@ -182,97 +133,6 @@ def accel_step(dual: DualQP, Y: torch.Tensor, done: torch.Tensor,
     return torch.where(keep[None, :], Yn, Y)
 
 
-def costs(primal: PrimalQP, dual: DualQP, Y: torch.Tensor, U: torch.Tensor,
-          precision=None):
-    """Batched primal/dual costs (computeCost, PQP_CPU.c:648-666):
-    ``J = 1/2 Z'QZ + F'Z + M/2``.  Returns (Jp, Jd), each (B,)."""
-    QdY = _mv(dual.Qd, Y)
-    Jd = (0.5 * (Y * QdY).sum(dim=0)
-          + (_as2d(dual.Fd) * Y).sum(dim=0) + 0.5 * dual.Md)
-    QpU = _mv(primal.Qp, U)
-    Jp = (0.5 * (U * QpU).sum(dim=0)
-          + (_as2d(primal.Fp) * U).sum(dim=0) + 0.5 * primal.Mp)
-    return Jp, Jd
-
-
-def recover_U(primal: PrimalQP, Y: torch.Tensor,
-              precision=None) -> torch.Tensor:
-    """``U = -Qp^-1 (Fp + Gp' Y)`` (computeUfromY, PQP_CPU.c:352-360)."""
-    return -_mv(primal.Qp_inv, _mvT(primal.Gp, Y) + _as2d(primal.Fp))
-
-
-def feasibility(primal: PrimalQP, U: torch.Tensor, erc: float, eac: float,
-                precision=None) -> torch.Tensor:
-    """Elementwise-all feasibility with the reference's slack
-    ``Kp + max(erc*Kp, eac)`` (compare, PQP_CPU.c:334-343 — no |Kp|, as in
-    the reference).  ``Kp`` may be ``(N,)`` or ``(N, B)``.  Returns (B,)."""
-    slack = primal.Kp + torch.clamp(erc * primal.Kp, min=eac)
-    return (_mv(primal.Gp, U) <= _as2d(slack)).all(dim=0)
-
-
-def termination_fail(feas: torch.Tensor, Jp: torch.Tensor, Jd: torch.Tensor,
-                     cfg: SolverConfig,
-                     gap: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The four-part verdict of ``terminate`` (PQP_CPU.c:673-687) in the
-    reference's negated form (``fail if x > tol``), so a NaN comparison is
-    false and that test passes, as in C.  ``gap`` — a precomputed
-    complementarity gap, or ``None`` for the explicit ``Jp + Jd`` (then the
-    weak-duality test is the reference's ``Jp > -Jd``)."""
-    if gap is None:
-        gap = Jp + Jd
-        weak_fail = lambda: Jp > -Jd
-    else:
-        weak_fail = lambda: gap > 0.0
-    fail = ~feas | (gap > cfg.eaj) | (gap / Jd.abs() > cfg.erj)
-    if cfg.strict_weak_duality:
-        fail = fail | weak_fail()
-    return fail
-
-
-def complementarity_gap(dual: DualQP, Y: torch.Tensor,
-                        precision=None) -> torch.Tensor:
-    """Duality gap of the recovered primal via ``Y'(Qd Y + Fd)``
-    (see ``SolverConfig.gap_from_complementarity``).  Returns (B,)."""
-    return (Y * (_mv(dual.Qd, Y) + _as2d(dual.Fd))).sum(dim=0)
-
-
-def check_terminate(primal: PrimalQP, dual: DualQP, Y: torch.Tensor,
-                    cfg: SolverConfig, precision=None):
-    """The four-part test of ``terminate`` (PQP_CPU.c:673-687), batched.
-
-    Returns (ok, U, feas, Jp, Jd).  With ``cfg.feas_from_dual_gradient``
-    the feasibility residual is read from the identity
-    ``Gp U - Kp = -(Qd Y + Fd)`` (exact for the recovered U), at dual
-    scale instead of forcing scale — see the JAX ``check_terminate``.
-    """
-    U = recover_U(primal, Y)
-    fail, feas, Jp, Jd = certificate(primal, dual, Y, U, cfg)
-    return ~fail, U, feas, Jp, Jd
-
-
-def certificate(primal: PrimalQP, dual: DualQP, Y: torch.Tensor,
-                U: torch.Tensor, cfg: SolverConfig):
-    """The verdict of :func:`check_terminate` on ``Y`` and its recovered
-    ``U`` (the whole-solve kernels return theirs): ``(fail, feas, Jp,
-    Jd)``, each (B,)."""
-    if cfg.feas_from_dual_gradient:
-        QdY = _mv(dual.Qd, Y)
-        g = QdY + _as2d(dual.Fd)                    # = Kp - Gp U exactly
-        slack = torch.clamp(cfg.erc * primal.Kp, min=cfg.eac)
-        feas = (g >= -_as2d(slack)).all(dim=0)
-        Jd = (0.5 * (Y * QdY).sum(dim=0)
-              + (_as2d(dual.Fd) * Y).sum(dim=0) + 0.5 * dual.Md)
-        Jp = (0.5 * (U * _mv(primal.Qp, U)).sum(dim=0)
-              + (_as2d(primal.Fp) * U).sum(dim=0) + 0.5 * primal.Mp)
-        gap = (Y * g).sum(dim=0) if cfg.gap_from_complementarity else None
-    else:
-        feas = feasibility(primal, U, cfg.erc, cfg.eac)
-        Jp, Jd = costs(primal, dual, Y, U)
-        gap = (complementarity_gap(dual, Y)
-               if cfg.gap_from_complementarity else None)
-    return termination_fail(feas, Jp, Jd, cfg, gap), feas, Jp, Jd
-
-
 def merge_lanes(ok: torch.Tensor, res_a: SolveResult,
                 res_b: SolveResult) -> SolveResult:
     """Per-lane select between two :class:`SolveResult`\\ s: lane ``i``
@@ -302,26 +162,6 @@ def retry_cold_solve(solve_fn: Callable[[torch.Tensor], SolveResult],
     return merge_lanes(res.converged, res, solve_fn(Y0))
 
 
-def _batch_of(dual: DualQP) -> int:
-    if dual.Qd.dim() == 3:
-        return dual.Qd.shape[0]
-    return dual.Fd.shape[1] if dual.Fd.dim() == 2 else 1
-
-
-def _normalize_warm(Y0: torch.Tensor, N: int, B: int):
-    """(Y0 (N, B), B): one warm start seeds the whole batch, and a batched
-    warm start over a single instance widens the batch."""
-    Y0 = _as2d(Y0)
-    if Y0.shape[1] == 1 and B > 1:
-        Y0 = Y0.expand(N, B)
-    elif B == 1 and Y0.shape[1] > 1:
-        B = Y0.shape[1]
-    elif Y0.shape[1] != B:
-        raise ValueError(
-            f"warm start batch {Y0.shape[1]} != instance batch {B}")
-    return Y0, B
-
-
 def solve_batched(primal: PrimalQP, dual: DualQP,
                   Y0: Optional[torch.Tensor] = None,
                   cfg: SolverConfig = SolverConfig(),
@@ -332,25 +172,19 @@ def solve_batched(primal: PrimalQP, dual: DualQP,
     ``(M, B)``/``(N, B)``.  Distinct geometry: ``dual.Qd (B, N, N)`` and
     its splits, ``primal.Gp``/``Qp``/``Qp_inv`` per instance or shared
     (:func:`~pqp_for_mpc_tpu_torch.dual.dualize_distinct`); B is
-    ``Qd.shape[0]``.  ``Y0`` warm-starts the solve (one column seeds
-    the whole batch); the default is the reference's cold start
-    ``Y = y0 * ones`` (PQP_CPU.c:710).  ``retry_cold`` (with a warm ``Y0``)
+    ``Qd.shape[0]``.  ``Y0`` warm-starts the solve; the default is the
+    reference's cold start (:func:`~pqp_for_mpc_tpu_torch.lanes.lane_batch`
+    maps either onto the lanes).  ``retry_cold`` (with a warm ``Y0``)
     re-solves failed lanes once from the cold start
     (:func:`retry_cold_solve`).
     """
     refuse_split_free_distinct(dual)
-    N = dual.n_con
-    B = _batch_of(dual)
-    dev = dual.Qd.device
     warm = Y0 is not None
-    if Y0 is None:
-        Y0 = torch.full((N, B), cfg.y0, dtype=torch.float32, device=dev)
-    else:
-        Y0, B = _normalize_warm(Y0, N, B)
+    Y0, B = lane_batch(dual, Y0, cfg)
     if retry_cold and warm:
-        Y_cold = torch.full((N, B), cfg.y0, dtype=torch.float32, device=dev)
         return retry_cold_solve(
-            lambda y0: _solve_core(primal, dual, y0, cfg), Y0, Y_cold)
+            lambda y0: _solve_core(primal, dual, y0, cfg), Y0,
+            cold_start(dual.n_con, B, cfg, Y0.device))
     return _solve_core(primal, dual, Y0, cfg)
 
 
@@ -370,11 +204,9 @@ def _loop_blocks(primal: PrimalQP, dual: DualQP, cfg: SolverConfig):
     use_kernel = cfg.use_pallas and dual.Qd.dim() == 2
     streamed = None
     if use_kernel:
-        from pqp_for_mpc_tpu_torch.ops import kernels as _kernels
         if not _kernels.fits_resident(N):
             # past residency the update streams one Qd_hat (K3), built once
             # per solve; it never needed the materialized splits
-            from pqp_for_mpc_tpu_torch.ops import tiled_kernel as _tiled
             streamed = _tiled.streamed_matrix(dual.Qd, dual.theta, "float32")
         elif dual.Qdn_theta is None:
             # the resident kernel holds the materialized splits; a
@@ -540,38 +372,6 @@ def _graph_key(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
             tuple(getattr(cfg, f) for f in _BODY_FIELDS))
 
 
-class IdentityEntry:
-    """A cache entry keyed on some tensors' identities (``id`` of each):
-    weak references to them (a dead one means its id may now name another
-    tensor), where their data lay when ``value`` was made (``places``, the
-    caller's choice of stamp) and ``value``.  It keeps no caller's tensors
-    alive.  The plain solver's graphs and K1's geometry layout
-    (``ops.solve_kernel.geometry_layout``) are cached in such entries."""
-
-    __slots__ = ("refs", "places", "value")
-
-    def __init__(self, ts: tuple):
-        self.refs = tuple(None if t is None else weakref.ref(t) for t in ts)
-        self.places = self.value = None
-
-    def alive(self) -> bool:
-        return all(r is None or r() is not None for r in self.refs)
-
-
-def remember(cache: "collections.OrderedDict", key, ts: tuple,
-             keep: int) -> IdentityEntry:
-    """A new :class:`IdentityEntry` of ``ts`` under ``key``, the most
-    recently used of ``cache``; entries whose tensors died are dropped,
-    then the least recently used past ``keep``."""
-    for k in [k for k, e in cache.items() if not e.alive()]:
-        del cache[k]
-    cache[key] = entry = IdentityEntry(ts)
-    cache.move_to_end(key)
-    while len(cache) > keep:
-        cache.popitem(last=False)
-    return entry
-
-
 def _graphs_for(primal: PrimalQP, dual: DualQP, Y0: torch.Tensor,
                 cfg: SolverConfig, plain: bool):
     """The :class:`_SolveGraphs` of this solve where
@@ -726,28 +526,15 @@ def solve_mixed(primal: PrimalQP, dual: DualQP,
     distinct = dual.Qd.dim() == 3
     refuse_split_free_distinct(dual)
     N = dual.n_con
-    B = _batch_of(dual)
     dev = dual.Qd.device
-    if Y0 is None:
-        Y0 = torch.full((N, B), cfg.y0, dtype=torch.float32, device=dev)
-    else:
-        Y0 = _as2d(Y0)
-        if Y0.shape[1] == 1 and B > 1:
-            Y0 = Y0.expand(N, B)
-        elif not distinct:
-            B = Y0.shape[1]
+    Y0, B = lane_batch(dual, Y0, cfg)
 
     use_kernel = False
     if cfg.use_pallas and distinct:
-        from pqp_for_mpc_tpu_torch.ops import distinct_tiled_kernel as _dt
-        from pqp_for_mpc_tpu_torch.ops.distinct_kernel import \
-            distinct_fits_resident
-        use_kernel = not distinct_fits_resident(N, primal.n_var)
+        use_kernel = not _distinct.distinct_fits_resident(N, primal.n_var)
         streamed_fn = (_dt.distinct_streamed_matrix,
                        _dt.distinct_streamed_iterations)
     elif cfg.use_pallas:
-        from pqp_for_mpc_tpu_torch.ops import kernels as _kernels
-        from pqp_for_mpc_tpu_torch.ops import tiled_kernel as _tiled
         use_kernel = not _kernels.fits_resident(N)
         streamed_fn = (_tiled.streamed_matrix,
                        _tiled.streamed_pqp_iterations)
@@ -858,7 +645,6 @@ def solve(primal: PrimalQP, dual: Optional[DualQP] = None,
                 f"solve() is single-instance but {name} has batch "
                 f"{arr.shape[1]}; use solve_batched()")
     if dual is None:
-        from pqp_for_mpc_tpu_torch.dual import dualize
         dual = dualize(primal, theta_floor=cfg.theta_floor,
                        precision=cfg.precision)
     res = solve_batched(primal, dual, Y0=Y0, cfg=cfg)

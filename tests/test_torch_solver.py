@@ -280,3 +280,176 @@ def test_fan_out_edge_lanes_fail_alike():
         assert (np.abs(gap[left]) / np.abs(jd_[left]) < 0.1 * JMPC.erj).all()
         assert (gap[left] > JMPC.eaj).all() and \
             (gap[left] <= 4 * JMPC.eaj).all()
+
+
+# --- the lane contract (pqp_for_mpc_tpu_torch.lanes) -------------------------
+#
+# Every solve entry maps its warm start onto the lanes by one rule
+# (``lanes.lane_batch``); each is held to it here on small CPU problems in
+# the port alone: the double integrator at horizon 4 (M = 4, N = 16) over
+# LANES initial states, as shared geometry, as distinct geometry (each
+# instance's Qp scaled) and on the stage-wise backend.
+
+LANES = 4
+#: few iterations, no acceleration, an even check cadence (K4's), and a
+#: cold start that is not the default
+RULE_CFG = dataclasses.replace(SMOKE, max_iters=24, check_every=4,
+                               y0=0.37)
+
+
+def _rule_problem(kind):
+    """(solve(Y0) -> SolveResult, N) for one entry on a small problem."""
+    from pqp_for_mpc_tpu_torch import dualize, dualize_distinct
+    from pqp_for_mpc_tpu_torch import routing
+    from pqp_for_mpc_tpu_torch.models import MPCSpec as TSpec
+    from pqp_for_mpc_tpu_torch.models import condense as tcondense
+    from pqp_for_mpc_tpu_torch.models import double_integrator as tplant
+    from pqp_for_mpc_tpu_torch.models import stagewise
+    from pqp_for_mpc_tpu_torch.ops import (distinct_kernel,
+                                           distinct_tiled_kernel,
+                                           packed_kernel, solve_kernel,
+                                           tiled_solve_kernel)
+    spec = TSpec(tplant(), horizon=4, Qy=np.eye(1), R=0.05 * np.eye(1),
+                 r=np.array([2.5]), u_min=-np.ones(1), u_max=np.ones(1),
+                 du_max=0.5 * np.ones(1))
+    x = torch.as_tensor(np.random.default_rng(5).normal(0.0, 0.5, (2, LANES))
+                        .astype(np.float32))
+    cfg = RULE_CFG
+    if kind == "solve_stagewise":
+        sd = stagewise.stagewise_dual(spec, device="cpu")
+        return (lambda Y0: stagewise.solve_stagewise(sd, x, Y0=Y0, cfg=cfg),
+                sd.n_con)
+    data = tcondense(spec, device="cpu")
+    primal = data.assemble(x=x, Qp=data.qp())
+    if kind.startswith("solve_fused_distinct"):
+        scale = 1.0 + 0.25 * torch.arange(LANES, dtype=torch.float32)
+        Qp = primal.Qp[None] * scale[:, None, None]
+        primal = dataclasses.replace(
+            primal, Qp=Qp, Qp_inv=torch.linalg.inv(Qp),
+            Gp=primal.Gp.expand(LANES, -1, -1).contiguous(),
+            Kp=primal.Kp[:, None].expand(-1, LANES).contiguous())
+        dual = dualize_distinct(primal)
+    else:
+        dual = dualize(primal)
+    fn = {"solve_batched": tsolver.solve_batched,
+          "solve_mixed": tsolver.solve_mixed,
+          "solve_auto": routing.solve_auto,
+          "solve_fused": solve_kernel.solve_fused,
+          "solve_fused_packed": packed_kernel.solve_fused_packed,
+          "solve_fused_tiled": tiled_solve_kernel.solve_fused_tiled,
+          "solve_fused_distinct": distinct_kernel.solve_fused_distinct,
+          "solve_fused_distinct_tiled":
+              distinct_tiled_kernel.solve_fused_distinct_tiled}[kind]
+    return lambda Y0: fn(primal, dual, Y0=Y0, cfg=cfg), dual.n_con
+
+
+RULE_ENTRIES = ("solve_batched", "solve_mixed", "solve_auto", "solve_fused",
+                "solve_fused_packed", "solve_fused_tiled",
+                "solve_fused_distinct", "solve_fused_distinct_tiled",
+                "solve_stagewise")
+
+
+def _same_result(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert (x is None) == (y is None), f.name
+        if x is not None:
+            assert torch.equal(x, y), f.name
+
+
+@pytest.mark.parametrize("entry", RULE_ENTRIES)
+def test_one_warm_column_seeds_every_lane(entry):
+    solve, N = _rule_problem(entry)
+    col = torch.linspace(0.05, 0.6, N)[:, None]
+    got = solve(col)
+    assert got.Y.shape == (N, LANES)
+    _same_result(got, solve(col.repeat(1, LANES)))
+
+
+@pytest.mark.parametrize("entry", RULE_ENTRIES)
+def test_a_mismatched_warm_start_raises(entry):
+    solve, N = _rule_problem(entry)
+    with pytest.raises(ValueError, match=f"warm start batch {LANES - 1} != "
+                                         f"instance batch {LANES}"):
+        solve(torch.full((N, LANES - 1), 0.1))
+
+
+@pytest.mark.parametrize("entry", RULE_ENTRIES)
+def test_no_warm_start_starts_every_lane_at_y0(entry):
+    solve, N = _rule_problem(entry)
+    _same_result(solve(None), solve(torch.full((N, LANES), RULE_CFG.y0)))
+
+
+def test_lane_batch_widens_one_shared_instance_only():
+    from pqp_for_mpc_tpu_torch import lanes
+    _, _, _, td = _workload()
+    one = dataclasses.replace(td, Fd=td.Fd[:, 0])       # one instance
+    Y0, B = lanes.lane_batch(one, torch.ones(td.n_con, 3), RULE_CFG)
+    assert B == 3 and Y0.shape == (td.n_con, 3)
+    Y0, B = lanes.lane_batch(td, torch.ones(td.n_con, 1), RULE_CFG)
+    assert B == td.Fd.shape[1] and Y0.stride() == (1, 0)
+    cold, B = lanes.lane_batch(td, None, RULE_CFG)
+    assert B == td.Fd.shape[1] and bool((cold == RULE_CFG.y0).all())
+
+
+@pytest.mark.parametrize("inputs", ["fused_inputs", "distinct_inputs",
+                                    "tiled_inputs", "distinct_tiled_inputs"])
+def test_shared_panels_stay_stride_zero(inputs):
+    """At 4,096 lanes every panel that one vector serves (here all of
+    them: the instances share Fp, Fd, Mp and Md) is a view with lane
+    stride 0, never a copy."""
+    from pqp_for_mpc_tpu_torch import dualize, dualize_distinct
+    from pqp_for_mpc_tpu_torch.ops import (distinct_kernel,
+                                           distinct_tiled_kernel,
+                                           solve_kernel, tiled_solve_kernel)
+    B = 4096
+    _, _, tp, td = _workload()
+    one = dataclasses.replace(tp, Fp=tp.Fp[:, 0], Mp=tp.Mp[0])
+    if inputs.startswith("distinct"):
+        one = dataclasses.replace(
+            one, Qp=one.Qp.expand(B, -1, -1), Qp_inv=one.Qp_inv.expand(
+                B, -1, -1), Gp=one.Gp.expand(B, -1, -1))
+        dual = dualize_distinct(dataclasses.replace(
+            one, Qp=one.Qp[:2], Qp_inv=one.Qp_inv[:2], Gp=one.Gp[:2]))
+        # one geometry's dual over B instances, each a stride-0 view
+        dual = dataclasses.replace(dual, **{
+            f: getattr(dual, f)[:1].expand(B, -1, -1)
+            for f in ("Qd", "Qdp_theta", "Qdn_theta")},
+            theta=dual.theta[:1].expand(B, -1), Fd=dual.Fd[:, 0],
+            Fdp=dual.Fdp[:, 0], Fdn=dual.Fdn[:, 0], Md=dual.Md[0])
+        Y0 = torch.ones(td.n_con, 1)
+    else:
+        dual = dualize(one)
+        Y0 = torch.ones(td.n_con, B)                    # B lanes, warm
+    mod = {"fused_inputs": solve_kernel, "distinct_inputs": distinct_kernel,
+           "tiled_inputs": tiled_solve_kernel,
+           "distinct_tiled_inputs": distinct_tiled_kernel}[inputs]
+    args, _ = getattr(mod, inputs)(one, dual, Y0, RULE_CFG)
+    *_, Fp, Fd, Fdp, Fdn, _kp, Mp, Md, Y = args
+    for name, panel in (("Fp", Fp), ("Fd", Fd), ("Fdp", Fdp), ("Fdn", Fdn)):
+        assert panel.shape[1] == B and panel.stride(1) == 0, name
+    for name, lane in (("Mp", Mp), ("Md", Md)):
+        assert lane.shape == (B,) and lane.stride(0) == 0, name
+    assert Y.shape == (td.n_con, B)
+
+
+def test_no_kernel_module_imports_the_solver():
+    """The kernel layer sits beneath the plain engine: no module under
+    ``ops/`` imports ``pqp_for_mpc_tpu_torch.solver`` (the shared lane
+    contract lives in ``pqp_for_mpc_tpu_torch.lanes``)."""
+    import ast
+    import pathlib
+    import pqp_for_mpc_tpu_torch.ops as ops
+    found = []
+    for path in sorted(pathlib.Path(ops.__file__).parent.glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] + [
+                    f"{node.module}.{a.name}" for a in node.names]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            if any(n == "pqp_for_mpc_tpu_torch.solver" for n in names):
+                found.append(f"{path.name}:{node.lineno}")
+    assert not found, found
